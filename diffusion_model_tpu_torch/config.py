@@ -1,0 +1,134 @@
+"""Configuration of the PyTorch port, read from a snapshot's embedded JSON.
+
+The fields and their defaults carry the names of ``diffusion_model_tpu.config``
+so one JSON describes both packages. Only the fields that conditional
+generation on the dense topology reads are here; ``from_dict`` ignores the
+rest (training knobs, mesh settings) and raises ``NotImplementedError`` for
+settings whose code path the port does not have yet. No yaml: PyTorch does
+not depend on PyYAML, so a module-level ``import yaml`` would stop the port
+from importing on a machine that has only PyTorch and numpy.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Sequence
+
+import torch
+
+# (field, value the port supports): any other value raises.
+_SUPPORTED = (
+    ("neighbor_k", 0),
+    ("virtual_node", False),
+    ("h_residual", False),
+    ("edge_rbf", 0),
+    ("global_radius_feature", False),
+    ("compat_scalar_norm", False),
+    ("ring_sample", False),
+    ("x_parameterization", "eps"),
+    ("noise_schedule", "predefined"),
+    ("spectrum_to_latent", False),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    # EGNN architecture
+    L: int = 5
+    m_size: int = 256
+    m_hidden_size: int = 1024
+    h_hidden_size: int = 1024
+    x_hidden_size: int = 1024
+
+    # feature layout
+    atom_type_size: int = 2
+    spectrum_size: int = 200
+    compressed_spectrum_size: int = 32
+    compressor_hidden_dim: Sequence[int] = (150, 100, 50)
+    to_compress_spectrum: bool = True
+    conditional: bool = True
+    give_exO: bool = True
+    exO_size: int = 1
+    t_size: int = 1
+    onehot_scaling_factor: float = 1.0
+
+    # diffusion process
+    num_diffusion_timestep: int = 1000
+    noise_schedule: str = "predefined"
+    noise_precision: float = 1e-5
+    noise_schedule_power: float = 2.0
+    x_parameterization: str = "eps"
+    diffuse_species: bool = True
+    seed: int = 2024
+
+    # sampling
+    guidance_scale: float = 0.0
+    sample_noise_scale: float = 1.0
+    deterministic_sampling: bool = False
+    sample_steps: int = 0
+    sample_grid: str = "uniform"
+    gen_num_per_spectrum: int = 5
+    max_nan_retries: int = 10
+
+    # topology and numerics
+    n_max: int = 16
+    neighbor_k: int = 0
+    compute_dtype: str = "float32"
+
+    # variants the port rejects (see _SUPPORTED)
+    virtual_node: bool = False
+    h_residual: bool = False
+    edge_rbf: int = 0
+    global_radius_feature: bool = False
+    compat_scalar_norm: bool = False
+    ring_sample: bool = False
+    spectrum_to_latent: bool = False
+
+    def __post_init__(self):
+        for name, supported in _SUPPORTED:
+            if getattr(self, name) != supported:
+                raise NotImplementedError(
+                    f"{name}={getattr(self, name)!r} is not ported yet "
+                    f"(the port runs {name}={supported!r})")
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"compute_dtype={self.compute_dtype!r} must be 'float32' "
+                "or 'bfloat16'")
+        if self.sample_grid not in ("uniform", "snr"):
+            raise ValueError(
+                f"sample_grid={self.sample_grid!r} must be 'uniform' or 'snr'")
+
+    @property
+    def cond_spectrum_size(self) -> int:
+        if not self.conditional:
+            return 0
+        return (self.compressed_spectrum_size if self.to_compress_spectrum
+                else self.spectrum_size)
+
+    @property
+    def h_size(self) -> int:
+        """Node feature width ``[species | spectrum | exO | t]``."""
+        size = self.atom_type_size + self.cond_spectrum_size + self.t_size
+        if self.give_exO:
+            size += self.exO_size
+        return size
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        """The MLP matmul dtype (geometry and reductions stay float32)."""
+        return (torch.bfloat16 if self.compute_dtype == "bfloat16"
+                else torch.float32)
+
+    def replace(self, **kwargs: Any) -> "Config":
+        return dataclasses.replace(self, **kwargs)
+
+
+_FIELD_NAMES = {f.name for f in dataclasses.fields(Config)}
+
+
+def from_dict(d: dict) -> Config:
+    """Build a Config from a dict, ignoring keys the port does not read."""
+    known = {k: v for k, v in d.items() if k in _FIELD_NAMES}
+    if isinstance(known.get("compressor_hidden_dim"), list):
+        known["compressor_hidden_dim"] = tuple(known["compressor_hidden_dim"])
+    return Config(**known)

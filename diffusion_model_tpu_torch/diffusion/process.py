@@ -1,0 +1,124 @@
+"""Reverse steps of the joint (x, h) diffusion process on padded batches.
+
+``alphas[t]`` for t = 0..T is alpha_t and sigma_t = sqrt(1 - alpha_t^2).
+The posterior mean of the t -> s = t-1 step is
+``mu = z/alpha_ts - sigma2_ts * eps / (alpha_ts * sigma_t)`` with
+``alpha_ts = alpha_t/alpha_s``, and the ancestral step adds
+``sqrt(sigma2_ts * sigma2_s / sigma2_t)`` times fresh noise, CoM-free for
+positions. Noise is a standard-normal tensor handed in by the caller (the
+sampler draws it from an explicit ``torch.Generator``), so the same draws
+can be fed to the JAX package and to the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from diffusion_model_tpu_torch.config import Config
+from diffusion_model_tpu_torch.ops.com import remove_mean
+from diffusion_model_tpu_torch.ops.schedules import polynomial_alpha_schedule
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """Noise schedule table: ``alphas[t]`` for t = 0..T (length T+1)."""
+
+    alphas: torch.Tensor
+
+    @property
+    def num_timesteps(self) -> int:
+        return self.alphas.shape[0] - 1
+
+    def alpha(self, t):
+        return self.alphas[t]
+
+    def sigma(self, t):
+        return torch.sqrt(1.0 - self.alphas[t] ** 2)
+
+
+def predefined_schedule(cfg: Config, device=None) -> Schedule:
+    """Polynomial schedule from config."""
+    return Schedule(alphas=polynomial_alpha_schedule(
+        cfg.num_diffusion_timestep, s=cfg.noise_precision,
+        power=cfg.noise_schedule_power, device=device))
+
+
+def shape_noise(noise: torch.Tensor, mode: str,
+                mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Standard-normal draws made CoM-free ("pos") or masked ("h")."""
+    if mode == "pos":
+        return remove_mean(noise, mask)
+    if mask is not None:
+        return noise * mask.to(noise.dtype).unsqueeze(-1)
+    return noise
+
+
+def _mask_rows(out: torch.Tensor, mask: Optional[torch.Tensor]):
+    if mask is None:
+        return out
+    return out * mask.to(out.dtype).unsqueeze(-1)
+
+
+def calculate_mu(schedule: Schedule, z: torch.Tensor, eps: torch.Tensor,
+                 t: int) -> torch.Tensor:
+    """Posterior mean for the t -> t-1 step."""
+    alpha_t = schedule.alpha(t)
+    alpha_s = schedule.alpha(t - 1)
+    sq_sigma_t = 1.0 - alpha_t ** 2
+    sigma_t = torch.sqrt(sq_sigma_t)
+    sq_sigma_s = 1.0 - alpha_s ** 2
+    alpha_ts = alpha_t / alpha_s
+    sq_sigma_ts = sq_sigma_t - alpha_ts ** 2 * sq_sigma_s
+    return z / alpha_ts - (sq_sigma_ts / (alpha_ts * sigma_t)) * eps
+
+
+def reverse_diffuse_one_step(schedule: Schedule, noise: Optional[torch.Tensor],
+                             z: torch.Tensor, eps: torch.Tensor, t: int,
+                             mode: str = "pos",
+                             mask: Optional[torch.Tensor] = None,
+                             deterministic: bool = False,
+                             noise_scale: float = 1.0) -> torch.Tensor:
+    """One ancestral reverse step z_t -> z_{t-1}.
+
+    ``noise`` is a raw standard-normal tensor shaped like ``z`` (it is made
+    CoM-free or masked here); it is not read when the step is deterministic
+    (``deterministic`` or ``noise_scale == 0``) and may then be None.
+    """
+    mu = calculate_mu(schedule, z, eps, t)
+    if deterministic or noise_scale == 0.0:
+        out = mu
+    else:
+        alpha_t = schedule.alpha(t)
+        alpha_s = schedule.alpha(t - 1)
+        sq_sigma_t = 1.0 - alpha_t ** 2
+        sq_sigma_s = 1.0 - alpha_s ** 2
+        alpha_ts = alpha_t / alpha_s
+        sq_sigma_ts = sq_sigma_t - alpha_ts ** 2 * sq_sigma_s
+        # a flat stretch of a schedule can round sq_sigma_ts below zero
+        std = torch.sqrt(sq_sigma_ts.clamp_min(0.0) * sq_sigma_s / sq_sigma_t)
+        out = mu + noise_scale * std * shape_noise(noise, mode, mask)
+    return _mask_rows(out, mask)
+
+
+def final_denoise_step(schedule: Schedule, noise: Optional[torch.Tensor],
+                       z: torch.Tensor, eps: torch.Tensor, mode: str = "pos",
+                       mask: Optional[torch.Tensor] = None,
+                       deterministic: bool = False,
+                       noise_scale: float = 1.0) -> torch.Tensor:
+    """The explicit t=0 epilogue:
+
+        mu = z/alpha_0 - sigma_0 * eps / alpha_0
+        z' = mu + (sigma_0/alpha_0) * noise  (dropped when deterministic)
+    """
+    alpha_0 = schedule.alpha(0)
+    sigma_0 = schedule.sigma(0)
+    mu = z / alpha_0 - (sigma_0 / alpha_0) * eps
+    if deterministic or noise_scale == 0.0:
+        out = mu
+    else:
+        out = mu + noise_scale * (sigma_0 / alpha_0) * shape_noise(
+            noise, mode, mask)
+    return _mask_rows(out, mask)

@@ -1,0 +1,192 @@
+"""Reverse-diffusion sampler: T (or a strided subset of) ancestral steps, the
+t=0 epilogue and the accept mask, with NaN retry.
+
+The chain is a Python loop over eager PyTorch calls on one device. Random
+draws come from ``noise(shape)``, a callable that returns the next
+standard-normal tensor of that shape; by default it draws from the explicit
+``torch.Generator``. The draws are taken in a fixed order: initial
+positions, initial species channel, then per step the position noise and
+the species noise, then the same two for the epilogue (none when the chain
+is deterministic). A caller can therefore replay another implementation's
+draws, which is how the tests hold whole chains against the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from diffusion_model_tpu_torch.config import Config
+from diffusion_model_tpu_torch.data.batch import GraphBatch
+from diffusion_model_tpu_torch.diffusion.process import (
+    Schedule,
+    final_denoise_step,
+    reverse_diffuse_one_step,
+)
+from diffusion_model_tpu_torch.ops.com import remove_mean
+from diffusion_model_tpu_torch.ops.schedules import linspace_f32
+
+NoiseSource = Callable[[Sequence[int]], torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class SampleResult:
+    pos: torch.Tensor       # [B, N, 3] final coordinates
+    species: torch.Tensor   # [B, N, A] one-hot argmax species
+    h: torch.Tensor         # [B, N, A] raw final species channel
+    finite: torch.Tensor    # [B] bool: no NaN/Inf produced
+    accepted: torch.Tensor  # [B] bool: finite and every coordinate <= 1000
+
+
+def tile_batch(cond: GraphBatch, n: int) -> GraphBatch:
+    """Repeat each condition ``n`` times, copies adjacent."""
+    return cond.map(lambda a: a.repeat_interleave(n, dim=0))
+
+
+def snr_grid(alphas: torch.Tensor, steps: int) -> torch.Tensor:
+    """``steps+1`` schedule indices equispaced in log-SNR, endpoints pinned
+    to 0 and T and forced monotone where the spacing allows."""
+    a2 = alphas.to(torch.float32) ** 2
+    gamma = (torch.log1p(-a2.clamp_max(1.0 - 1e-7))
+             - torch.log(a2.clamp_min(1e-38)))
+    levels = linspace_f32(gamma[0], gamma[-1], steps + 1, device=alphas.device)
+    idx = torch.searchsorted(gamma, levels)
+    t_max = alphas.shape[0] - 1
+    idx[0] = 0
+    idx[-1] = t_max
+    ar = torch.arange(steps + 1, device=alphas.device)
+    idx = torch.minimum(torch.maximum(idx, ar), t_max - steps + ar)
+    return torch.cummax(idx, dim=0).values
+
+
+def _strided(schedule: Schedule, cfg: Config):
+    """(schedule over the reverse grid, t/T of each grid entry, steps)."""
+    T = cfg.num_diffusion_timestep
+    steps = cfg.sample_steps or T
+    if steps > T:
+        raise ValueError(
+            f"sample_steps={steps} exceeds num_diffusion_timestep={T}")
+    device = schedule.alphas.device
+    if steps == T:
+        return (schedule,
+                torch.arange(T + 1, dtype=torch.float32, device=device) / T,
+                steps)
+    if cfg.sample_grid == "snr":
+        idx = snr_grid(schedule.alphas, steps)
+    else:
+        idx = torch.round(linspace_f32(0.0, T, steps + 1, device=device)).long()
+    return (Schedule(alphas=schedule.alphas[idx]),
+            idx.to(torch.float32) / T, steps)
+
+
+@torch.no_grad()
+def sample(denoise_fn: Callable, schedule: Schedule, cfg: Config,
+           generator: Optional[torch.Generator], cond: GraphBatch,
+           noise: Optional[NoiseSource] = None) -> SampleResult:
+    """Generate one structure per entry of ``cond``.
+
+    Args:
+      denoise_fn: ``(species_ch, pos, spectrum, exo, t_norm, mask) ->
+        (eps_x, eps_h)``, e.g. a ``DiffusionDenoiser``.
+      schedule: the full ``T+1`` schedule table, on ``cond``'s device.
+      generator: source of the default noise; unused when ``noise`` is set.
+      cond: conditioning batch; its ``spectrum``, ``exo`` and ``mask`` drive
+        generation (``species`` too when species are not diffused).
+      noise: optional replacement source of standard-normal draws.
+    """
+    device = cond.device
+    if noise is None:
+        def noise(shape):
+            return torch.randn(tuple(shape), generator=generator,
+                               device=device)
+    schedule, t_norm_table, steps = _strided(schedule, cfg)
+    scale = cfg.onehot_scaling_factor
+    mask = cond.mask
+    b, n = mask.shape
+    a_dim = cfg.atom_type_size
+    m3 = mask.unsqueeze(-1)
+    stochastic = not cfg.deterministic_sampling and cfg.sample_noise_scale != 0
+    step_kw = dict(mask=mask, deterministic=cfg.deterministic_sampling,
+                   noise_scale=cfg.sample_noise_scale)
+
+    pos = remove_mean(noise((b, n, 3)), mask)
+    h = noise((b, n, a_dim)) * m3 if cfg.diffuse_species else cond.species
+
+    def denoise(pos, h, t):
+        t_norm = m3 * t_norm_table[t]
+        eps_x, eps_h = denoise_fn(scale * h, pos, cond.spectrum, cond.exo,
+                                  t_norm, mask)
+        if cfg.guidance_scale > 0:
+            # classifier-free guidance: (1+w) * cond - w * uncond
+            ex_u, eh_u = denoise_fn(scale * h, pos,
+                                    torch.zeros_like(cond.spectrum),
+                                    cond.exo, t_norm, mask)
+            w = cfg.guidance_scale
+            eps_x = (1.0 + w) * eps_x - w * ex_u
+            eps_h = (1.0 + w) * eps_h - w * eh_u
+        return eps_x, eps_h
+
+    def draws():
+        if not stochastic:
+            return None, None
+        pos_noise = noise(pos.shape)
+        return pos_noise, (noise(h.shape) if cfg.diffuse_species else None)
+
+    for t in range(steps, 0, -1):
+        eps_x, eps_h = denoise(pos, h, t)
+        pos_noise, h_noise = draws()
+        new_pos = reverse_diffuse_one_step(schedule, pos_noise, pos, eps_x, t,
+                                           mode="pos", **step_kw)
+        if cfg.diffuse_species:
+            h = reverse_diffuse_one_step(schedule, h_noise, scale * h, eps_h,
+                                         t, mode="h", **step_kw)
+        pos = new_pos
+
+    # t=0 epilogue: index 0 of the (strided) table is schedule entry 0
+    eps_x, eps_h = denoise(pos, h, 0)
+    pos_noise, h_noise = draws()
+    pos = final_denoise_step(schedule, pos_noise, pos, eps_x, mode="pos",
+                             **step_kw)
+    if cfg.diffuse_species:
+        h = final_denoise_step(schedule, h_noise, scale * h, eps_h, mode="h",
+                               **step_kw)
+        species = F.one_hot(h.argmax(dim=-1), a_dim).to(pos.dtype) * m3
+    else:
+        species = cond.species
+
+    flat_pos, flat_h = pos.reshape(b, -1), h.reshape(b, -1)
+    finite = (torch.isfinite(flat_pos).all(dim=-1)
+              & torch.isfinite(flat_h).all(dim=-1))
+    # coordinates above 1000 are rejected (signed comparison)
+    accepted = finite & ~(flat_pos > 1000.0).any(dim=-1)
+    return SampleResult(pos=pos, species=species, h=h, finite=finite,
+                        accepted=accepted)
+
+
+def sample_with_retry(denoise_fn: Callable, schedule: Schedule, cfg: Config,
+                      generator: Optional[torch.Generator], cond: GraphBatch,
+                      noise: Optional[NoiseSource] = None) -> SampleResult:
+    """``sample``, then re-draw the entries that were not accepted, keeping
+    the accepted ones, for at most ``cfg.max_nan_retries`` rounds."""
+    result = sample(denoise_fn, schedule, cfg, generator, cond, noise)
+    for _ in range(cfg.max_nan_retries):
+        if bool(result.accepted.all()):
+            break
+        retry = sample(denoise_fn, schedule, cfg, generator, cond, noise)
+        take = ~result.accepted & retry.accepted
+
+        def merge(old, new):
+            return torch.where(take.reshape((-1,) + (1,) * (old.ndim - 1)),
+                               new, old)
+
+        result = SampleResult(
+            pos=merge(result.pos, retry.pos),
+            species=merge(result.species, retry.species),
+            h=merge(result.h, retry.h),
+            finite=torch.where(take, retry.finite, result.finite),
+            accepted=result.accepted | retry.accepted,
+        )
+    return result

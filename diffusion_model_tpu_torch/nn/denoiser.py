@@ -1,0 +1,73 @@
+"""The conditional denoiser: feature assembly + EGNN -> (eps_x, eps_h).
+
+    h_in   = [species_t(A) | compressed spectrum | exO | t/T]
+    h', x' = EGNN(h_in, pos_t)
+    eps_x  = remove_mean(x' - pos_t)   (per graph, masked)
+    eps_h  = h'[..., :A]
+
+Everything is padded and masked. The topology is the dense pair grid of the
+real nodes, which the edge function derives from ``node_mask``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+from torch import nn
+
+from diffusion_model_tpu_torch.config import Config
+from diffusion_model_tpu_torch.nn.compressor import SpectrumCompressor
+from diffusion_model_tpu_torch.nn.egnn import EquivariantGNN
+from diffusion_model_tpu_torch.ops.com import remove_mean
+from diffusion_model_tpu_torch.ops.egcl_pair import egcl_pair_edges
+
+
+class DiffusionDenoiser(nn.Module):
+    """Parameters are frozen (``requires_grad=False``): the port serves
+    trained snapshots, and the edge kernel has no backward yet."""
+
+    def __init__(self, cfg: Config, edge_fn: Callable = egcl_pair_edges,
+                 device=None):
+        super().__init__()
+        self.cfg = cfg
+        dt = cfg.torch_dtype
+        self.spectrum_compressor = None
+        if cfg.conditional and cfg.to_compress_spectrum:
+            self.spectrum_compressor = SpectrumCompressor(
+                cfg.spectrum_size, tuple(cfg.compressor_hidden_dim),
+                cfg.compressed_spectrum_size, compute_dtype=dt, device=device)
+        self.egnn = EquivariantGNN(
+            cfg.L, cfg.h_size, cfg.m_hidden_size, cfg.m_size,
+            cfg.x_hidden_size, cfg.h_hidden_size, compute_dtype=dt,
+            edge_fn=edge_fn, device=device)
+        self.requires_grad_(False)
+
+    def forward(self, species_t, pos_t, spectrum, exo, t_norm, node_mask):
+        """Predict the joint noise.
+
+        Args:
+          species_t: ``[B, N, A]`` noisy species channel.
+          pos_t: ``[B, N, 3]`` noisy positions.
+          spectrum: ``[B, N, S]`` per-node conditioning spectra.
+          exo: ``[B, N, 1]`` excited-atom indicator.
+          t_norm: ``[B, N, 1]`` diffusion time t/T.
+          node_mask: ``[B, N]``.
+
+        Returns:
+          (eps_x ``[B, N, 3]`` CoM-free masked, eps_h ``[B, N, A]`` masked).
+        """
+        cfg = self.cfg
+        feats = [species_t]
+        if cfg.conditional:
+            feats.append(spectrum if self.spectrum_compressor is None
+                         else self.spectrum_compressor(spectrum))
+        if cfg.give_exO:
+            feats.append(exo)
+        feats.append(t_norm)
+        h_in = torch.cat(feats, dim=-1)
+        h_out, x_out = self.egnn(h_in, pos_t, node_mask)
+        mask3 = node_mask.unsqueeze(-1).to(pos_t.dtype)
+        eps_x = remove_mean((x_out - pos_t) * mask3, node_mask)
+        eps_h = h_out[..., : cfg.atom_type_size] * mask3
+        return eps_x, eps_h

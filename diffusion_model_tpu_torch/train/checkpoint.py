@@ -1,0 +1,91 @@
+"""Pickle-free ``.npz`` parameter snapshots, and the flax-to-torch name map.
+
+A snapshot written by ``diffusion_model_tpu.train.checkpoint.save_params_npz``
+holds the flattened flax parameter tree (``denoiser/params/egnn/egcl_0/
+mlp_m_dense0/kernel`` ...) and the run's config as a JSON string under
+``__config_json__``. Both load here with numpy alone.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Optional
+
+import numpy as np
+import torch
+
+from diffusion_model_tpu_torch.config import Config, from_dict
+
+_CONFIG_KEY = "__config_json__"
+
+
+def load_params_npz(path: str, dtype="float32") -> dict:
+    """Load a snapshot's parameter arrays back into a nested dict."""
+    with np.load(path) as z:
+        flat = {k: z[k].astype(dtype) for k in z.files if k != _CONFIG_KEY}
+    tree: dict = {}
+    for key, v in flat.items():
+        node = tree
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def load_config_npz(path: str) -> Optional[Config]:
+    """The Config embedded in a snapshot, or None if it has none.
+
+    A config stored as a pickled object array fails to load here (numpy
+    refuses it without ``allow_pickle``), and so does malformed JSON: both
+    raise instead of being read some other way.
+    """
+    with np.load(path) as z:
+        if _CONFIG_KEY not in z.files:
+            return None
+        return from_dict(json.loads(str(z[_CONFIG_KEY][()])))
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            out.update(_flatten(v, key))
+        else:
+            out[key] = v
+    return out
+
+
+# Modules held as ``nn.Linear`` (weight ``[out, in]``): their flax kernels
+# are transposed. Every other kernel keeps the flax ``[in, out]`` layout,
+# which is the layout the EGCL edge kernel reads.
+_LINEAR_MODULES = ("mlp_h_dense0", "mlp_h_dense1", "dense")
+
+
+def _is_linear(module_path: str) -> bool:
+    leaf = module_path.rsplit("/", 1)[-1]
+    return leaf.startswith(_LINEAR_MODULES)
+
+
+def state_dict_from_flax(tree: dict) -> dict:
+    """Map a flax parameter tree onto ``DiffusionDenoiser``'s state dict.
+
+    ``tree`` is the nested dict of ``load_params_npz`` (with or without the
+    top-level ``denoiser`` key). Names carry over with ``/`` read as ``.``;
+    ``kernel`` becomes ``weight`` (transposed) on the ``nn.Linear`` modules
+    of the spectrum compressor and the node MLP. The values are float32
+    tensors; the denoiser casts to ``cfg.compute_dtype`` where it computes.
+    ``DiffusionDenoiser.load_state_dict`` (strict) rejects a tree whose
+    names or shapes do not fit the config.
+    """
+    params = tree.get("denoiser", tree)["params"]
+    out = {}
+    for key, value in _flatten(params).items():
+        module_path, leaf = key.rsplit("/", 1)
+        t = torch.as_tensor(np.asarray(value, np.float32))
+        if _is_linear(module_path):
+            if leaf == "kernel":
+                leaf, t = "weight", t.T
+        out[f"{module_path.replace('/', '.')}.{leaf}"] = t.contiguous()
+    return out

@@ -1,0 +1,111 @@
+"""The port's snapshot loader and config against the JAX package's."""
+
+import dataclasses
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from diffusion_model_tpu.config import from_dict as jax_from_dict
+from diffusion_model_tpu.train import checkpoint as jax_ckpt
+from diffusion_model_tpu_torch import config as port_config
+from diffusion_model_tpu_torch.nn.denoiser import DiffusionDenoiser
+from diffusion_model_tpu_torch.train import checkpoint as port_ckpt
+from torch_port_fixtures import SNAPSHOT
+
+torch.set_num_threads(4)
+
+LEARNED = SNAPSHOT.parent / "q_learned_r5_s2025.npz"
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        out.update(_flat(v, key) if isinstance(v, dict) else {key: v})
+    return out
+
+
+def test_every_array_loads_exactly_as_in_jax():
+    want = _flat(jax_ckpt.load_params_npz(str(SNAPSHOT)))
+    got = _flat(port_ckpt.load_params_npz(str(SNAPSHOT)))
+    assert sorted(got) == sorted(want)
+    assert len(got) == 88
+    for k in want:
+        assert got[k].dtype == want[k].dtype == np.float32
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_state_dict_carries_every_flax_tensor_exactly():
+    tree = port_ckpt.load_params_npz(str(SNAPSHOT))
+    flat = _flat(tree["denoiser"]["params"])
+    sd = port_ckpt.state_dict_from_flax(tree)
+    assert len(sd) == len(flat)
+    for key, value in flat.items():
+        module, leaf = key.rsplit("/", 1)
+        name = module.replace("/", ".")
+        if port_ckpt._is_linear(module) and leaf == "kernel":
+            got = sd[f"{name}.weight"].numpy().T
+        else:
+            got = sd[f"{name}.{leaf}"].numpy()
+        np.testing.assert_array_equal(got, value, err_msg=key)
+
+
+def test_state_dict_loads_strictly_into_the_denoiser():
+    cfg = port_ckpt.load_config_npz(str(SNAPSHOT))
+    model = DiffusionDenoiser(cfg)
+    sd = port_ckpt.state_dict_from_flax(
+        port_ckpt.load_params_npz(str(SNAPSHOT)))
+    model.load_state_dict(sd)   # strict: names and shapes all match
+    w = model.egnn.egcl_0.mlp_x_dense1.kernel
+    assert tuple(w.shape) == (1024, 1024) and not w.requires_grad
+
+
+def test_config_matches_jax_field_for_field():
+    got = port_ckpt.load_config_npz(str(SNAPSHOT))
+    want = jax_ckpt.load_config_npz(str(SNAPSHOT))
+    for f in dataclasses.fields(got):
+        assert getattr(got, f.name) == getattr(want, f.name), f.name
+    assert got.h_size == want.h_size == 36
+    assert got.compute_dtype == "bfloat16" and got.L == 5
+    assert got.torch_dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("field,value", [
+    ("neighbor_k", 32), ("virtual_node", True), ("h_residual", True),
+    ("edge_rbf", 8), ("global_radius_feature", True),
+    ("compat_scalar_norm", True), ("ring_sample", True),
+    ("x_parameterization", "x0"), ("noise_schedule", "learned"),
+])
+def test_unported_settings_raise_naming_the_field(field, value):
+    d = {field: value}
+    jax_from_dict(d)   # a valid config for the JAX package
+    with pytest.raises(NotImplementedError, match=field):
+        port_config.from_dict(d)
+
+
+def test_learned_schedule_snapshot_is_refused():
+    with pytest.raises(NotImplementedError, match="noise_schedule"):
+        port_ckpt.load_config_npz(str(LEARNED))
+
+
+def test_corrupt_config_json_raises(tmp_path):
+    path = tmp_path / "bad.npz"
+    np.savez(path, w=np.zeros(2), __config_json__=np.array("{not json"))
+    with pytest.raises(json.JSONDecodeError):
+        port_ckpt.load_config_npz(str(path))
+
+
+def test_pickled_config_is_not_unpickled(tmp_path):
+    path = tmp_path / "legacy.npz"
+    np.savez(path, w=np.zeros(2),
+             __config_json__=np.array(json.dumps({"L": 2}), dtype=object))
+    with pytest.raises(ValueError, match="pickle"):
+        port_ckpt.load_config_npz(str(path))
+
+
+def test_snapshot_without_config_gives_none(tmp_path):
+    path = tmp_path / "bare.npz"
+    np.savez(path, w=np.zeros(2))
+    assert port_ckpt.load_config_npz(str(path)) is None

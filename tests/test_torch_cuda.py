@@ -1,0 +1,73 @@
+"""The port's CUDA kernel against its plain version, on the card.
+
+Needs a CUDA card; skipped elsewhere. This file imports no JAX, so it also
+runs on a machine that has only PyTorch (the tests' conftest.py imports
+JAX, hence ``--noconftest`` there):
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+"""
+
+import pytest
+import torch
+
+from diffusion_model_tpu_torch.ops import egcl_pair
+from torch_port_fixtures import edge_args, edge_inputs
+
+torch.set_num_threads(4)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel is CUDA C++ for sm_90a "
+                    "and has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _rel_l2(got, want):
+    return float((got - want).norm() / want.norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,f1,fm", [(80, 16, 1024, 256),
+                                       (1, 192, 1024, 256),
+                                       (3, 24, 1024, 256),
+                                       (2, 5, 320, 64)])
+def test_kernel_matches_plain(cuda_device, dtype, b, n, f1, fm):
+    inputs = edge_inputs(8, b=b, n=n, f1=f1, fm=fm,
+                         n_real=[n - (g % 5) for g in range(b)])
+    args = edge_args(inputs, cuda_device, dtype)
+    before = egcl_pair.egcl_pair_launches
+    got_m, got_x = egcl_pair.egcl_pair_edges(*args)
+    torch.cuda.synchronize()
+    assert egcl_pair.egcl_pair_launches == before + 1
+    want_m, want_x = egcl_pair.egcl_pair_edges_reference(*args)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got_m, want_m, rtol=2e-4, atol=2e-5)
+        torch.testing.assert_close(got_x, want_x, rtol=2e-4, atol=2e-5)
+    else:
+        assert _rel_l2(got_m, want_m) <= 1e-2
+        assert _rel_l2(got_x - args[4], want_x - args[4]) <= 1e-2
+    pad = args[5][..., 0] == 0
+    assert torch.equal(got_m[pad], torch.zeros_like(got_m[pad]))
+    assert torch.equal(got_x[pad], args[4][pad])
+
+
+@pytest.mark.cuda
+def test_kernel_is_deterministic(cuda_device):
+    args = edge_args(edge_inputs(9, b=4, n=40, f1=1024, fm=256,
+                                 n_real=(40, 33, 17, 2)),
+                     cuda_device, torch.bfloat16)
+    first = egcl_pair.egcl_pair_edges(*args)
+    second = egcl_pair.egcl_pair_edges(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_grad_inputs_refused_on_the_card(cuda_device):
+    args = list(edge_args(edge_inputs(10, f1=64, fm=64), cuda_device))
+    args[8] = args[8].clone().requires_grad_(True)
+    with pytest.raises(ValueError, match="requires grad"):
+        egcl_pair.egcl_pair_edges(*args)

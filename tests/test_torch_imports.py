@@ -1,0 +1,50 @@
+"""The port and ``chip_smoke.py`` import without JAX, flax, yaml or the JAX
+package: the machine with the card has none of them."""
+
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+import diffusion_model_tpu_torch
+
+torch.set_num_threads(4)
+
+REPO = Path(__file__).resolve().parents[1]
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "yaml", "diffusion_model_tpu")
+
+
+def port_modules():
+    pkg = diffusion_model_tpu_torch
+    return [pkg.__name__] + [
+        m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+
+
+def test_every_module_is_listed():
+    names = port_modules()
+    for expected in ("api", "config", "data.batch", "diffusion.process",
+                     "diffusion.sampler", "nn.compressor", "nn.denoiser",
+                     "nn.egnn", "ops.angles", "ops.com", "ops.edges",
+                     "ops.egcl_pair", "ops.schedules", "ops._build",
+                     "train.checkpoint"):
+        assert f"diffusion_model_tpu_torch.{expected}" in names
+
+
+def test_imports_without_jax_flax_yaml_or_the_jax_package():
+    code = "\n".join([
+        "import importlib, sys",
+        f"for name in {BLOCKED!r}:",
+        "    sys.modules[name] = None",
+        f"for name in {port_modules()!r} + ['chip_smoke']:",
+        "    importlib.import_module(name)",
+        "loaded = [m for m in sys.modules if m.split('.')[0] in "
+        f"{BLOCKED!r} and sys.modules[m] is not None]",
+        "assert not loaded, loaded",
+        "print('ok')",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

@@ -1,0 +1,230 @@
+"""Shared inputs for the PyTorch port's tests and for ``chip_smoke.py``.
+
+``build()`` makes, with the JAX package on the CPU:
+
+  * the flagship's 27 test conditions: ``synthetic_sio2_dataset(2024, 256,
+    16, spectrum_size=200, shells=2)`` split with ``split_dataset(., 2024)``
+    (the recipe of ``benchmarks/npz_restore_check.py``), padded to 16 nodes;
+  * the 192-atom headline cell ``amorphous_cell(seed=0, num_atoms=192,
+    spectrum_size=200)`` of ``bench.py``;
+  * goldens of ``DiffusionDenoiser.apply`` on the ``artifacts/q_predef_r5.npz``
+    weights, in float32 and in bfloat16, at t/T = 0.1, 0.5 and 0.9 on the
+    27 conditions noised from a numpy seed (the noisy inputs are stored).
+
+The committed copy is ``tests/fixtures/torch_port/flagship.npz``; the port's
+GPU check reads it because the JAX package's data modules need JAX. A test
+rebuilds it and compares, so it cannot go stale. To rewrite it:
+
+    JAX_PLATFORMS=cpu python tests/torch_port_fixtures.py
+
+The module also replays the JAX sampler's random draws for the port's
+noise source (``jax_sample_draws``, ``Replay``) and makes inputs for the
+EGCL edge function (``edge_inputs``, ``edge_args``). It imports JAX only
+inside the functions that need it, so the card's tests can use the rest.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parents[1]
+FIXTURE = REPO / "tests" / "fixtures" / "torch_port" / "flagship.npz"
+SNAPSHOT = REPO / "artifacts" / "q_predef_r5.npz"
+T_FRACS = (0.1, 0.5, 0.9)
+NUM_GRAPHS = 256     # dataset size the flagship was trained on
+CELL_ATOMS = 192
+
+
+def _jax():
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    return jax
+
+
+def flagship():
+    """(JAX config, flax params) of the committed flagship snapshot."""
+    _jax()
+    from diffusion_model_tpu.train.checkpoint import (
+        load_config_npz,
+        load_params_npz,
+    )
+
+    return load_config_npz(str(SNAPSHOT)), load_params_npz(str(SNAPSHOT))
+
+
+def flagship_conditions(cfg) -> list:
+    """The flagship's test split as graph dicts (numpy)."""
+    from diffusion_model_tpu.data.split import split_dataset
+    from diffusion_model_tpu.data.synthetic import synthetic_sio2_dataset
+
+    graphs = synthetic_sio2_dataset(cfg.seed, NUM_GRAPHS, cfg.n_max,
+                                    spectrum_size=cfg.spectrum_size,
+                                    shells=2)
+    return split_dataset(graphs, cfg.seed)[2]
+
+
+def noisy_inputs(schedule_alphas: np.ndarray, pos, species, mask, t_frac,
+                 seed):
+    """Forward-noised (species_t, pos_t, t_norm) at t = round(t_frac * T)."""
+    T = len(schedule_alphas) - 1
+    t = int(round(t_frac * T))
+    alpha = np.float32(schedule_alphas[t])
+    sigma = np.float32(np.sqrt(1.0 - alpha ** 2))
+    rng = np.random.default_rng(seed)
+    m3 = mask[..., None]
+    eps_x = rng.normal(size=pos.shape).astype(np.float32) * m3
+    count = np.maximum(m3.sum(axis=1, keepdims=True), 1.0)
+    eps_x = (eps_x - eps_x.sum(axis=1, keepdims=True) / count) * m3
+    eps_h = rng.normal(size=species.shape).astype(np.float32) * m3
+    pos_t = (alpha * pos + sigma * eps_x).astype(np.float32)
+    species_t = (alpha * species + sigma * eps_h).astype(np.float32)
+    t_norm = (np.float32(t / T) * m3).astype(np.float32)
+    return species_t, pos_t, t_norm
+
+
+def build() -> dict:
+    """Every array of the fixture file, made anew."""
+    jax = _jax()
+    import jax.numpy as jnp
+
+    from diffusion_model_tpu.data.batch import collate
+    from diffusion_model_tpu.data.synthetic import amorphous_cell
+    from diffusion_model_tpu.diffusion.process import predefined_schedule
+    from diffusion_model_tpu.nn import DiffusionDenoiser
+
+    cfg, params = flagship()
+    test = flagship_conditions(cfg)
+    batch = collate(test, cfg.n_max)
+    out = {
+        "cond_pos": np.asarray(batch.pos),
+        "cond_species": np.asarray(batch.species),
+        "cond_spectrum": np.asarray(batch.spectrum),
+        "cond_exo": np.asarray(batch.exo),
+        "cond_mask": np.asarray(batch.mask),
+        "cond_id": np.asarray([g["id"] for g in test]),
+    }
+    cell = amorphous_cell(seed=0, num_atoms=CELL_ATOMS,
+                          spectrum_size=cfg.spectrum_size)
+    for k in ("pos", "species", "spectrum", "exo"):
+        out[f"cell_{k}"] = np.asarray(cell[k], np.float32)
+
+    alphas = np.asarray(predefined_schedule(cfg).alphas)
+    ins = [noisy_inputs(alphas, out["cond_pos"], out["cond_species"],
+                        out["cond_mask"], frac, seed=100 + k)
+           for k, frac in enumerate(T_FRACS)]
+    out["t_frac"] = np.asarray(T_FRACS, np.float32)
+    out["in_species_t"] = np.stack([i[0] for i in ins])
+    out["in_pos_t"] = np.stack([i[1] for i in ins])
+    out["in_t_norm"] = np.stack([i[2] for i in ins])
+    pair_mask = batch.pair_mask()
+    for dt in ("float32", "bfloat16"):
+        model = DiffusionDenoiser(cfg.replace(compute_dtype=dt))
+        apply = jax.jit(model.apply)
+        eps = [apply(params["denoiser"], jnp.asarray(sp), jnp.asarray(p),
+                     batch.spectrum, batch.exo, jnp.asarray(tn), batch.mask,
+                     pair_mask) for sp, p, tn in ins]
+        out[f"eps_x_{dt}"] = np.stack([np.asarray(e[0], np.float32)
+                                       for e in eps])
+        out[f"eps_h_{dt}"] = np.stack([np.asarray(e[1], np.float32)
+                                       for e in eps])
+    return out
+
+
+def jax_sample_draws(key, b: int, n: int, a_dim: int, steps: int,
+                     stochastic: bool) -> list:
+    """The standard-normal draws ``diffusion_model_tpu.diffusion.sampler.
+    sample(key, ...)`` makes, in the order the port's sampler consumes them
+    (initial pos, initial h, then pos/h per step and for the epilogue)."""
+    jax = _jax()
+
+    def normal(k, shape):
+        return np.asarray(jax.random.normal(k, shape))
+
+    key, k_pos, k_h = jax.random.split(key, 3)
+    draws = [normal(k_pos, (b, n, 3)), normal(k_h, (b, n, a_dim))]
+    for _ in range(steps):
+        key, k1, k2 = jax.random.split(key, 3)
+        if stochastic:
+            draws += [normal(k1, (b, n, 3)), normal(k2, (b, n, a_dim))]
+    key, k1, k2 = jax.random.split(key, 3)
+    if stochastic:
+        draws += [normal(k1, (b, n, 3)), normal(k2, (b, n, a_dim))]
+    return draws
+
+
+class Replay:
+    """A port noise source that hands out recorded draws in order."""
+
+    def __init__(self, draws, device="cpu"):
+        self.draws = list(draws)
+        self.device = device
+
+    def __call__(self, shape):
+        import torch
+
+        if not self.draws:
+            raise AssertionError(f"no recorded draw left for shape {shape}")
+        d = self.draws.pop(0)
+        if tuple(d.shape) != tuple(shape):
+            raise AssertionError(
+                f"recorded draw has shape {d.shape}, sampler asked {shape}")
+        return torch.from_numpy(np.array(d, np.float32)).to(self.device)
+
+
+EDGE_NAMES = ("am_i", "am_j", "ax_i", "ax_j", "x", "mask", "w_dm", "w_dx",
+              "w2m", "b2m", "wa", "ba", "w2x", "b2x", "wx3", "bx3")
+_EDGE_COMPUTE = {"am_i", "am_j", "ax_i", "ax_j", "w_dm", "w_dx", "w2m", "w2x"}
+
+
+def edge_inputs(seed=0, b=2, n=16, f1=32, fm=16, n_real=(11, 16)) -> dict:
+    """Numpy inputs of the EGCL edge function (K1's layout), graphs padded
+    to ``n`` nodes with ``n_real[g]`` real ones, scaled to stay O(1)."""
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape, scale=1.0):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    mask = np.zeros((b, n, 1), np.float32)
+    for g, k in enumerate(n_real):
+        mask[g, :k] = 1.0
+    return {
+        "am_i": normal(b, n, f1, scale=0.5), "am_j": normal(b, n, f1, scale=0.5),
+        "ax_i": normal(b, n, f1, scale=0.5), "ax_j": normal(b, n, f1, scale=0.5),
+        "x": normal(b, n, 3, scale=2.0), "mask": mask,
+        "w_dm": normal(1, f1, scale=0.1), "w_dx": normal(1, f1, scale=0.1),
+        "w2m": normal(f1, fm, scale=f1 ** -0.5), "b2m": normal(1, fm, scale=0.1),
+        "wa": normal(fm, 1, scale=fm ** -0.5), "ba": normal(1, 1, scale=0.1),
+        "w2x": normal(f1, f1, scale=f1 ** -0.5), "b2x": normal(1, f1, scale=0.1),
+        "wx3": normal(f1, 1, scale=f1 ** -0.5), "bx3": normal(1, 1, scale=0.1),
+    }
+
+
+def edge_args(inputs: dict, device="cpu", dtype=None) -> tuple:
+    """``edge_inputs`` as torch tensors in argument order: the projections
+    and the big kernels in ``dtype`` (default float32), the rest float32."""
+    import torch
+
+    dtype = dtype or torch.float32
+    return tuple(
+        torch.from_numpy(inputs[k]).to(
+            device, dtype if k in _EDGE_COMPUTE else torch.float32)
+        for k in EDGE_NAMES)
+
+
+def main() -> int:
+    arrays = build()
+    FIXTURE.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(FIXTURE, **arrays)
+    print(f"wrote {FIXTURE} ({FIXTURE.stat().st_size} bytes)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, str(REPO))
+    sys.exit(main())
