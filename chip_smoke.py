@@ -6,18 +6,36 @@
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; imports nothing of JAX.
 Phases, each printed as one JSON line:
 
-  1. toolchain: the card (``nvidia-smi``), CUDA, nvcc, and the build of the
-     EGCL pair kernel from ``diffusion_model_tpu_torch/csrc/``;
-  2. kernel against its plain version at flagship width (F1=1024, Fm=256)
-     on the inputs the main path gives it (B x N = 80 x 16 and 1 x 192),
-     float32 variant and bfloat16 variant, padded rows inert, and timed;
+  1. toolchain: the card (``nvidia-smi``), CUDA, nvcc, and the build of both
+     EGCL kernels from ``diffusion_model_tpu_torch/csrc/`` (one nvcc each,
+     started together);
+  2. the pair kernel (K1) against its plain version at flagship width
+     (F1=1024, Fm=256) on the inputs the main path gives it (B x N = 80 x 16
+     and 1 x 192), float32 variant and bfloat16 variant, padded rows inert,
+     and timed;
   3. the flagship denoiser on the card against the JAX goldens of
      ``tests/fixtures/torch_port/flagship.npz``;
   4. generation through ``api.generate`` from ``artifacts/q_predef_r5.npz``
      on the 27 flagship test conditions, 5 samples each, 1000 steps, bf16,
-     with the kernel's launch count taken over exactly that run;
+     with the kernels' launch counts taken over exactly that run;
   5. seconds per structure at the headline shape (192 atoms, B=1, 1000 and
-     250 strided steps), kernel path and plain path on the same card.
+     250 strided steps), kernel path and plain path on the same card;
+  6. the kNN kernel (K2) against its plain version at flagship width
+     (H=36), float32 and bfloat16, on the kNN route's inputs: 80 x 16 at
+     K=15 (every layer), 2 x 512 and 1 x 2048 amorphous cells at K=32
+     (layer 0); padded targets inert; timed;
+  7. K2 over ``knn_edges(., K=N-1)`` against K1 over the dense pair grid on
+     the same layer inputs (80 x 16, every layer): the same edges;
+  8. the flagship denoiser over ``knn_edges(., 6)`` against the JAX kNN
+     goldens of the fixture file;
+  9. generation as in phase 4 with ``neighbor_k=15``: every EGCL through K2
+     and none through K1;
+ 10. the large cell, speed only: the 512-atom model class's flags
+     (``neighbor_k=32``, ``virtual_node``, ``h_residual``) at full width on
+     ``amorphous_cell(seed=0, num_atoms=2048)``, B=1, with the flagship's
+     EGCL weights and seeded virtual-node weights: seconds per structure at
+     1000 and 250 strided steps through K2, 250 through the plain version,
+     and ms per denoiser call of both routes at 2 x 512.
 
 Any failed check raises, and the script exits non-zero without its result
 line. The last lines are the kernel table, the card's name and power limit,
@@ -38,6 +56,11 @@ SNAPSHOT = ROOT / "artifacts" / "q_predef_r5.npz"
 GEN_PER_CONDITION = 5
 GEN_BATCH = 16         # conditions per chunk: 16 x 5 = 80 graphs of 16 nodes
 SI_O_TOLERANCE = 0.1   # A, generated against conditioning median Si-O
+SERVED_K = 15          # kNN route of the served shape: K = N-1, all pairs
+GOLDEN_K = 6           # neighbours of the fixture's kNN goldens
+LARGE_K = 32           # the 512-atom model class's neighbor_k
+LARGE_ATOMS = 2048
+MID_ATOMS = 512
 
 
 def log(record: dict) -> None:
@@ -91,89 +114,132 @@ def load_fixture(device):
     return tensors, graphs, cell
 
 
-def capture_edge_inputs(model_cfg, params, device, species_t, pos_t,
-                        spectrum, exo, t_norm, mask):
-    """The arguments the denoiser hands its edge function, layer by layer."""
-    from diffusion_model_tpu_torch.api import denoiser_from_params
-    from diffusion_model_tpu_torch.ops.egcl_pair import (
-        egcl_pair_edges_reference,
+def kernel_table():
+    """name -> (kernel, plain version, index of x among the arguments,
+    padded-target rows of the arguments)."""
+    from diffusion_model_tpu_torch.ops.egcl_knn import (
+        egcl_knn_edges,
+        egcl_knn_edges_reference,
     )
-
-    calls = []
-
-    def record(*args):
-        calls.append(tuple(a.clone() for a in args))
-        return egcl_pair_edges_reference(*args)
-
-    model = denoiser_from_params(model_cfg, params, device, edge_fn=record)
-    model(species_t, pos_t, spectrum, exo, t_norm, mask)
-    return calls
-
-
-def check_kernel(args, dtype_name: str) -> dict:
-    """Kernel against the plain version on one set of edge inputs."""
-    import torch
-
     from diffusion_model_tpu_torch.ops.egcl_pair import (
         egcl_pair_edges,
         egcl_pair_edges_reference,
     )
 
-    got_m, got_x = egcl_pair_edges(*args)
-    want_m, want_x = egcl_pair_edges_reference(*args)
+    return {
+        "egcl_pair": (egcl_pair_edges, egcl_pair_edges_reference, 4,
+                      lambda a: a[5][..., 0] == 0),
+        "egcl_knn": (egcl_knn_edges, egcl_knn_edges_reference, 3,
+                     lambda a: a[5].sum(dim=-1) == 0),
+    }
+
+
+def recording_model(model_cfg, params, device):
+    """(denoiser, calls): the denoiser's edge functions run the plain
+    versions and append their arguments to ``calls[kernel name]``."""
+    from diffusion_model_tpu_torch.api import denoiser_from_params
+
+    table = kernel_table()
+    calls = {name: [] for name in table}
+
+    def recorder(name):
+        def record(*args):
+            calls[name].append(tuple(a.clone() for a in args))
+            return table[name][1](*args)
+        return record
+
+    model = denoiser_from_params(model_cfg, params, device,
+                                 edge_fn=recorder("egcl_pair"),
+                                 knn_edge_fn=recorder("egcl_knn"))
+    return model, calls
+
+
+def capture_edge_inputs(model_cfg, params, device, species_t, pos_t,
+                        spectrum, exo, t_norm, mask, k: int = 0):
+    """The arguments the denoiser hands its edge function, layer by layer:
+    over the dense pair grid, or over ``knn_edges(pos_t, mask, k)``."""
+    from diffusion_model_tpu_torch.ops.edges import knn_edges
+
+    model, calls = recording_model(model_cfg, params, device)
+    edges = knn_edges(pos_t, mask, k) if k else None
+    model(species_t, pos_t, spectrum, exo, t_norm, mask, edges)
+    return calls["egcl_knn" if k else "egcl_pair"]
+
+
+def check_kernel(name: str, args, dtype_name: str) -> dict:
+    """A kernel against its plain version on one set of edge inputs."""
+    import torch
+
+    kernel, plain, xi, padded = kernel_table()[name]
+    got_m, got_x = kernel(*args)
+    want_m, want_x = plain(*args)
     torch.cuda.synchronize()
     err = max(float((got_m - want_m).abs().max()),
               float((got_x - want_x).abs().max()))
-    rec = {"dtype": dtype_name, "shape": list(args[0].shape[:2]),
-           "max_abs_err": err}
+    rec = {"kernel": name, "dtype": dtype_name,
+           "shape": list(args[0].shape[:2]), "max_abs_err": err}
+    if name == "egcl_knn":
+        rec["k"] = int(args[4].shape[-1])
     if dtype_name == "float32":
-        for got, want, name in ((got_m, want_m, "m_sum"),
+        for got, want, what in ((got_m, want_m, "m_sum"),
                                 (got_x, want_x, "x_out")):
             torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5,
-                                       msg=lambda m: f"{name}: {m}")
+                                       msg=lambda m: f"{name} {what}: {m}")
         rec["tolerance"] = "rtol 2e-4 / atol 2e-5"
     else:
         rec["rel_l2_m_sum"] = rel_l2(got_m, want_m)
-        rec["rel_l2_x_update"] = rel_l2(got_x - args[4], want_x - args[4])
+        rec["rel_l2_x_update"] = rel_l2(got_x - args[xi], want_x - args[xi])
         if not max(rec["rel_l2_m_sum"], rec["rel_l2_x_update"]) <= 1e-2:
             raise AssertionError(f"bf16 kernel off the plain version: {rec}")
         rec["tolerance"] = "relative L2 1e-2"
-    # padded rows: no message, coordinates unchanged, exactly
-    mask = args[5][..., 0] > 0
-    if bool((got_m[~mask] != 0).any()) or bool(
-            (got_x[~mask] != args[4][~mask]).any()):
-        raise AssertionError("padded rows of the kernel output are not inert")
-    rec["padded_rows_checked"] = int((~mask).sum())
+    # padded targets: no message, coordinates unchanged, exactly
+    pad = padded(args)
+    if bool((got_m[pad] != 0).any()) or bool(
+            (got_x[pad] != args[xi][pad]).any()):
+        raise AssertionError(f"padded rows of {name}'s output are not inert")
+    rec["padded_rows_checked"] = int(pad.sum())
     return rec
 
 
-def phase_kernels(cfg, params, fx, cell, device) -> dict:
+def served_inputs(fx):
+    """The generation chunk (16 conditions x 5 copies, 80 x 16) noised at
+    t/T = 0.5 (the fixture's middle input)."""
+    k = 1
+    tile = lambda a: a[:GEN_BATCH].repeat_interleave(GEN_PER_CONDITION, 0)
+    return (tile(fx["in_species_t"][k]), tile(fx["in_pos_t"][k]),
+            tile(fx["cond_spectrum"]), tile(fx["cond_exo"]),
+            tile(fx["in_t_norm"][k]), tile(fx["cond_mask"]))
+
+
+def cell_inputs(cells, device, seed=0):
+    """A batch of cells noised as 0.7 * a + 0.7 * N(0, 1), at t/T = 0.5."""
     import torch
 
     from diffusion_model_tpu_torch.data.batch import collate
-    from diffusion_model_tpu_torch.ops.egcl_pair import (
-        egcl_pair_edges,
-        egcl_pair_edges_reference,
-    )
 
-    # 80 x 16: the generation chunk (16 conditions x 5 copies), noised at
-    # t/T = 0.5, every layer's inputs; 1 x 192: the headline cell, noised
-    # likewise, first layer only: the flagship was trained on graphs of at
-    # most 16 atoms, and over 192 atoms its coordinates grow to ~1e9 by the
-    # last layer, where no comparison means anything
-    k = 1
-    tile = lambda a: a[:GEN_BATCH].repeat_interleave(GEN_PER_CONDITION, 0)
-    small = (tile(fx["in_species_t"][k]), tile(fx["in_pos_t"][k]),
-             tile(fx["cond_spectrum"]), tile(fx["cond_exo"]),
-             tile(fx["in_t_norm"][k]), tile(fx["cond_mask"]))
-    big_batch = collate([cell], 192, device)
-    g = torch.Generator(device=device).manual_seed(0)
+    n = max(len(c["pos"]) for c in cells)
+    batch = collate(cells, n, device)
+    g = torch.Generator(device=device).manual_seed(seed)
     noisy = lambda a: (0.7 * a + 0.7 * torch.randn(
         a.shape, generator=g, device=device))
-    big = (noisy(big_batch.species), noisy(big_batch.pos),
-           big_batch.spectrum, big_batch.exo,
-           torch.full((1, 192, 1), 0.5, device=device), big_batch.mask)
+    return (noisy(batch.species), noisy(batch.pos), batch.spectrum,
+            batch.exo, torch.full((len(cells), n, 1), 0.5, device=device),
+            batch.mask)
 
+
+def time_kernel(name: str, args) -> dict:
+    kernel, plain = kernel_table()[name][:2]
+    return {"kernel_ms": cuda_ms(lambda: kernel(*args), 20),
+            "plain_ms": cuda_ms(lambda: plain(*args), 5)}
+
+
+def phase_kernels(cfg, params, fx, cell, device) -> dict:
+    # 80 x 16: every layer's inputs; 1 x 192: the headline cell, first layer
+    # only: the flagship was trained on graphs of at most 16 atoms, and over
+    # 192 atoms its coordinates grow to ~1e9 by the last layer, where no
+    # comparison means anything
+    small = served_inputs(fx)
+    big = cell_inputs([cell], device)
     checks, timings = [], {}
     for dtype_name in ("float32", "bfloat16"):
         dcfg = cfg.replace(compute_dtype=dtype_name)
@@ -181,15 +247,11 @@ def phase_kernels(cfg, params, fx, cell, device) -> dict:
                                      ("1x192", big, [0])):
             calls = capture_edge_inputs(dcfg, params, device, *inputs)
             for layer in layers:
-                rec = check_kernel(calls[layer], dtype_name)
+                rec = check_kernel("egcl_pair", calls[layer], dtype_name)
                 rec["layer"] = layer
                 checks.append(rec)
-            args = calls[0]
-            timings[f"{name}_{dtype_name}"] = {
-                "kernel_ms": cuda_ms(lambda: egcl_pair_edges(*args), 20),
-                "plain_ms": cuda_ms(
-                    lambda: egcl_pair_edges_reference(*args), 5),
-            }
+            timings[f"{name}_{dtype_name}"] = time_kernel("egcl_pair",
+                                                          calls[0])
     main = timings["80x16_bfloat16"]
     main_err = max(r["max_abs_err"] for r in checks
                    if r["dtype"] == "bfloat16" and r["shape"] == [80, 16])
@@ -198,20 +260,108 @@ def phase_kernels(cfg, params, fx, cell, device) -> dict:
             "plain_ms": main["plain_ms"]}
 
 
-def phase_denoiser(cfg, params, fx, device) -> None:
-    from diffusion_model_tpu_torch.api import denoiser_from_params
+def phase_knn_kernel(cfg, params, fx, device) -> dict:
+    from diffusion_model_tpu_torch.data.synthetic import amorphous_cell
 
-    rec = {"phase": "denoiser_vs_jax_golden"}
+    # 80 x 16 at K = N-1: the kNN route's inputs, every layer; 2 x 512 and
+    # 1 x 2048 amorphous cells at the 512-atom class's K=32, layer 0 (the
+    # flagship never saw such cells; see phase_kernels)
+    mids = [amorphous_cell(seed=s, num_atoms=MID_ATOMS) for s in (0, 1)]
+    shapes = (
+        ("80x16_k15", served_inputs(fx), SERVED_K, range(cfg.L)),
+        ("2x512_k32", cell_inputs(mids, device), LARGE_K, [0]),
+        ("1x2048_k32", cell_inputs(
+            [amorphous_cell(seed=0, num_atoms=LARGE_ATOMS)], device),
+         LARGE_K, [0]),
+    )
+    checks, timings = [], {}
+    for dtype_name in ("float32", "bfloat16"):
+        for name, inputs, k, layers in shapes:
+            calls = capture_edge_inputs(cfg.replace(compute_dtype=dtype_name),
+                                        params, device, *inputs, k=k)
+            for layer in layers:
+                rec = check_kernel("egcl_knn", calls[layer], dtype_name)
+                rec["layer"] = layer
+                checks.append(rec)
+            timings[f"{name}_{dtype_name}"] = time_kernel("egcl_knn",
+                                                          calls[0])
+    main = timings["80x16_k15_bfloat16"]
+    main_err = max(r["max_abs_err"] for r in checks
+                   if r["dtype"] == "bfloat16" and r["shape"] == [80, 16])
+    log({"phase": "knn_kernel_vs_plain", "checks": checks,
+         "timings": timings})
+    return {"max_abs_err": main_err, "ms": main["kernel_ms"],
+            "plain_ms": main["plain_ms"]}
+
+
+def phase_knn_is_dense(cfg, params, fx, device) -> None:
+    """K2 over K = N-1 lists and K1 over the pair grid, on the arguments
+    each route builds from the same layer input of a dense-route run."""
+    import torch
+
+    from diffusion_model_tpu_torch.ops.edges import knn_edges
+
+    table = kernel_table()
+    rec = {"phase": "knn_k_n_minus_1_vs_pair"}
+    for dtype_name in ("float32", "bfloat16"):
+        model, calls = recording_model(cfg.replace(compute_dtype=dtype_name),
+                                       params, device)
+        layer_inputs = []
+        hooks = [getattr(model.egnn, f"egcl_{l}").register_forward_pre_hook(
+            lambda mod, args: layer_inputs.append((mod, args[:3])))
+            for l in range(cfg.L)]
+        model(*served_inputs(fx))
+        for hook in hooks:
+            hook.remove()
+        for mod, (h, x, mask) in layer_inputs:
+            mod(h, x, mask, knn_edges(x, mask, SERVED_K))
+        worst = 0.0
+        for layer, (pair_args, knn_args) in enumerate(
+                zip(calls["egcl_pair"], calls["egcl_knn"], strict=True)):
+            want_m, want_x = table["egcl_pair"][0](*pair_args)
+            got_m, got_x = table["egcl_knn"][0](*knn_args)
+            torch.cuda.synchronize()
+            if dtype_name == "float32":
+                torch.testing.assert_close(got_m, want_m, rtol=2e-4,
+                                           atol=2e-5)
+                torch.testing.assert_close(got_x, want_x, rtol=2e-4,
+                                           atol=2e-5)
+                err = max(float((got_m - want_m).abs().max()),
+                          float((got_x - want_x).abs().max()))
+            else:
+                x = pair_args[4]
+                err = max(rel_l2(got_m, want_m),
+                          rel_l2(got_x - x, want_x - x))
+                if not err <= 1e-2:
+                    raise AssertionError(
+                        f"K2 at K=N-1 off K1 at layer {layer}: {err}")
+            worst = max(worst, err)
+        rec[dtype_name] = {
+            "layers": cfg.L, "worst": worst,
+            "measure": ("max abs err (rtol 2e-4 / atol 2e-5 held)"
+                        if dtype_name == "float32"
+                        else "relative L2 (limit 1e-2)")}
+    log(rec)
+
+
+def phase_denoiser(cfg, params, fx, device, k: int = 0) -> None:
+    from diffusion_model_tpu_torch.api import denoiser_from_params
+    from diffusion_model_tpu_torch.ops.edges import knn_edges
+
+    prefix = f"knn{k}_" if k else ""
+    rec = {"phase": f"{prefix}denoiser_vs_jax_golden"}
     for dtype_name in ("float32", "bfloat16"):
         model = denoiser_from_params(cfg.replace(compute_dtype=dtype_name),
                                      params, device)
         worst = 0.0
-        for k in range(fx["t_frac"].shape[0]):
-            eps_x, eps_h = model(fx["in_species_t"][k], fx["in_pos_t"][k],
+        for t in range(fx["t_frac"].shape[0]):
+            pos = fx["in_pos_t"][t]
+            edges = knn_edges(pos, fx["cond_mask"], k) if k else None
+            eps_x, eps_h = model(fx["in_species_t"][t], pos,
                                  fx["cond_spectrum"], fx["cond_exo"],
-                                 fx["in_t_norm"][k], fx["cond_mask"])
-            gold_x = fx[f"eps_x_{dtype_name}"][k]
-            gold_h = fx[f"eps_h_{dtype_name}"][k]
+                                 fx["in_t_norm"][t], fx["cond_mask"], edges)
+            gold_x = fx[f"{prefix}eps_x_{dtype_name}"][t]
+            gold_h = fx[f"{prefix}eps_h_{dtype_name}"][t]
             if dtype_name == "float32":
                 scale = max(float(gold_x.abs().max()),
                             float(gold_h.abs().max()))
@@ -224,8 +374,8 @@ def phase_denoiser(cfg, params, fx, device) -> None:
             worst = max(worst, err)
             if not err <= limit:
                 raise AssertionError(
-                    f"{dtype_name} denoiser off the JAX golden at t/T="
-                    f"{float(fx['t_frac'][k])}: {err} > {limit}")
+                    f"{prefix}{dtype_name} denoiser off the JAX golden at "
+                    f"t/T={float(fx['t_frac'][t])}: {err} > {limit}")
         rec[dtype_name] = {"worst": worst,
                            "measure": ("max abs err / output scale"
                                        if dtype_name == "float32"
@@ -249,10 +399,13 @@ def median_si_o(pos, species, mask) -> float:
 
 
 def phase_generate(cfg, params, graphs, device) -> int:
+    """Served generation; every EGCL must go through the kernel of the
+    config's route (K2 with ``neighbor_k``, else K1) and none through the
+    other. Returns that kernel's launch count over exactly the run."""
     import torch
 
     from diffusion_model_tpu_torch import api
-    from diffusion_model_tpu_torch.ops import egcl_pair
+    from diffusion_model_tpu_torch.ops import egcl_knn, egcl_pair
 
     model = api.denoiser_from_params(cfg, params, device)
     calls = [0]
@@ -260,6 +413,7 @@ def phase_generate(cfg, params, graphs, device) -> int:
         0, calls[0] + 1))
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     egcl_pair.egcl_pair_launches = 0
+    egcl_knn.egcl_knn_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = api.generate(cfg, model, graphs, generator,
@@ -267,22 +421,28 @@ def phase_generate(cfg, params, graphs, device) -> int:
                        batch_size=GEN_BATCH)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = egcl_pair.egcl_pair_launches
+    launches = {"egcl_pair": egcl_pair.egcl_pair_launches,
+                "egcl_knn": egcl_knn.egcl_knn_launches}
+    route, other = (("egcl_knn", "egcl_pair") if cfg.neighbor_k
+                    else ("egcl_pair", "egcl_knn"))
 
     n = len(graphs) * GEN_PER_CONDITION
     keep = out["accepted"]
-    rec = {"phase": "generate", "samples": n,
+    rec = {"phase": "generate_knn" if cfg.neighbor_k else "generate",
+           "neighbor_k": cfg.neighbor_k, "samples": n,
            "finite": int(out["finite"].sum()), "accepted": int(keep.sum()),
            "jax_record_accepted": "135 of 135",
-           "egcl_pair_launches": launches, "denoiser_calls": calls[0],
-           "wall_s": wall}
+           **{f"{k}_launches": v for k, v in launches.items()},
+           "denoiser_calls": calls[0], "wall_s": wall}
     if out["generated_pos"].shape != (n, cfg.n_max, 3) or len(out["ids"]) != n:
         raise AssertionError(f"generate returned wrong shapes: {rec}")
     if not keep.all():
         raise AssertionError(f"not every sample accepted: {rec}")
-    if launches == 0 or launches != cfg.L * calls[0]:
+    if launches[route] == 0 or launches[route] != cfg.L * calls[0]:
         raise AssertionError(
-            f"kernel launches {launches} != L x denoiser calls: {rec}")
+            f"{route} launches {launches[route]} != L x denoiser calls: {rec}")
+    if launches[other] != 0:
+        raise AssertionError(f"{other} launched on the {route} route: {rec}")
     si_o = median_si_o(out["generated_pos"], out["generated_species"],
                        out["mask"])
     si_o_ref = median_si_o(out["original_pos"], out["original_species"],
@@ -295,21 +455,28 @@ def phase_generate(cfg, params, graphs, device) -> int:
         raise AssertionError(
             f"median nearest Si-O {si_o} A is off the conditions' "
             f"{si_o_ref} A by more than {SI_O_TOLERANCE} A")
-    return launches
+    return launches[route]
+
+
+def time_sample(model, schedule, cfg, cond, steps: int, seed: int = 0):
+    """(seconds, all finite) of one ``sample`` of ``steps`` strided steps."""
+    import torch
+
+    from diffusion_model_tpu_torch.diffusion.sampler import sample
+
+    gen = torch.Generator(device=cond.device).manual_seed(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sample(model, schedule, cfg.replace(sample_steps=steps), gen, cond)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, bool(res.finite.all())
 
 
 def phase_headline(cfg, params, cell, device, card: str) -> None:
-    import torch
-
     from diffusion_model_tpu_torch.api import denoiser_from_params
     from diffusion_model_tpu_torch.data.batch import collate
     from diffusion_model_tpu_torch.diffusion.process import (
         predefined_schedule,
-    )
-    from diffusion_model_tpu_torch.diffusion.sampler import sample
-    from diffusion_model_tpu_torch.ops.egcl_pair import (
-        egcl_pair_edges,
-        egcl_pair_edges_reference,
     )
 
     n_atoms = 192
@@ -318,25 +485,103 @@ def phase_headline(cfg, params, cell, device, card: str) -> None:
     schedule = predefined_schedule(cfg, device=device)
     rec = {"phase": "headline_192_atoms", "card": card, "dtype":
            cfg.compute_dtype, "batch": 1}
-    for route, edge_fn in (("kernel", egcl_pair_edges),
-                           ("plain", egcl_pair_edges_reference)):
+    table = kernel_table()
+    for route, edge_fn in (("kernel", table["egcl_pair"][0]),
+                           ("plain", table["egcl_pair"][1])):
         model = denoiser_from_params(cfg, params, device, edge_fn=edge_fn)
-        gen = torch.Generator(device=device).manual_seed(0)
-        sample(model, schedule, cfg.replace(sample_steps=2), gen, cond)
+        time_sample(model, schedule, cfg, cond, 2)
         for steps in (1000, 250):
-            run_cfg = cfg.replace(sample_steps=steps)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = sample(model, schedule, run_cfg, gen, cond)
-            torch.cuda.synchronize()
-            sec = time.perf_counter() - t0
+            sec, finite = time_sample(model, schedule, cfg, cond, steps)
             rec[f"{route}_{steps}"] = {
                 "s_per_structure": sec,
                 "atoms_steps_per_s": n_atoms * steps / sec,
                 # not required: see phase_kernels on 192-atom inputs
-                "finite": bool(res.finite.all()),
+                "finite": finite,
             }
     log(rec)
+
+
+def with_vnode_params(params: dict, cfg, seed: int = 0) -> dict:
+    """The flax tree with virtual-node arrays added to every EGCL, drawn at
+    std 1/sqrt(fan_in) from a numpy seed (heads included, so the channel
+    does work; the layout of ``diffusion_model_tpu/nn/egnn.py``)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, mh, m, xh = (cfg.h_size, cfg.m_hidden_size, cfg.m_size,
+                    cfg.x_hidden_size)
+    shapes = {"vnode_in": (h + 1, mh), "vnode_pool": (mh, m),
+              "vnode_out": (h + m + 1, m), "vnode_x": (h + m + 1, xh),
+              "vnode_x_head": (xh, 1)}
+    egnn = dict(params["denoiser"]["params"]["egnn"])
+    for l in range(cfg.L):
+        layer = dict(egnn[f"egcl_{l}"])
+        for name, (fan_in, out) in shapes.items():
+            std = fan_in ** -0.5
+            layer[name] = {
+                "kernel": (rng.normal(size=(fan_in, out)) * std
+                           ).astype(np.float32),
+                "bias": (rng.normal(size=(out,)) * std).astype(np.float32)}
+        egnn[f"egcl_{l}"] = layer
+    den = dict(params["denoiser"]["params"], egnn=egnn)
+    return dict(params, denoiser={"params": den})
+
+
+def phase_large_cell(cfg, params, device, card: str) -> None:
+    import torch
+
+    from diffusion_model_tpu_torch.api import denoiser_from_params
+    from diffusion_model_tpu_torch.data.batch import collate
+    from diffusion_model_tpu_torch.data.synthetic import amorphous_cell
+    from diffusion_model_tpu_torch.diffusion.process import (
+        predefined_schedule,
+    )
+    from diffusion_model_tpu_torch.ops import egcl_knn
+
+    table = kernel_table()
+    cfg = cfg.replace(neighbor_k=LARGE_K, virtual_node=True, h_residual=True,
+                      n_max=LARGE_ATOMS)
+    params = with_vnode_params(params, cfg)
+    schedule = predefined_schedule(cfg, device=device)
+    big = collate([amorphous_cell(seed=0, num_atoms=LARGE_ATOMS)],
+                  LARGE_ATOMS, device)
+    mid = collate([amorphous_cell(seed=s, num_atoms=MID_ATOMS)
+                   for s in (0, 1)], MID_ATOMS, device)
+    rec = {"phase": "large_cell_2048_atoms", "card": card,
+           "dtype": cfg.compute_dtype, "batch": 1, "neighbor_k": LARGE_K,
+           "virtual_node": True, "h_residual": True, "L": cfg.L,
+           "weights": "flagship EGCL + seeded virtual node (speed only)"}
+    calls = [0]
+    egcl_knn.egcl_knn_launches = 0
+    for route, steps_list in (("kernel", (1000, 250)), ("plain", (250,))):
+        model = denoiser_from_params(cfg, params, device,
+                                     knn_edge_fn=table["egcl_knn"][
+                                         0 if route == "kernel" else 1])
+        if route == "kernel":
+            model.register_forward_pre_hook(lambda *_: calls.__setitem__(
+                0, calls[0] + 1))
+        time_sample(model, schedule, cfg, big, 2)
+        for steps in steps_list:
+            sec, finite = time_sample(model, schedule, cfg, big, steps)
+            rec[f"{route}_{steps}"] = {
+                "s_per_structure": sec,
+                "atoms_steps_per_s": LARGE_ATOMS * steps / sec,
+                "finite": finite,   # reported, not required
+            }
+        mid_cfg = cfg.replace(n_max=MID_ATOMS)
+        steps = 50
+        time_sample(model, schedule, mid_cfg, mid, 2)
+        sec, finite = time_sample(model, schedule, mid_cfg, mid, steps)
+        rec[f"{route}_2x512_ms_per_call"] = 1000 * sec / (steps + 1)
+    torch.cuda.synchronize()
+    launches = egcl_knn.egcl_knn_launches
+    rec["egcl_knn_launches"] = launches
+    rec["kernel_route_denoiser_calls"] = calls[0]
+    log(rec)
+    if launches == 0 or launches != cfg.L * calls[0]:
+        raise AssertionError(
+            f"large cell: {launches} K2 launches != L x {calls[0]} "
+            f"kernel-route denoiser calls")
 
 
 def main() -> int:
@@ -353,7 +598,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from diffusion_model_tpu_torch.ops import _build, egcl_pair
+    from diffusion_model_tpu_torch.ops import _build, egcl_knn, egcl_pair
     from diffusion_model_tpu_torch.train.checkpoint import (
         load_config_npz,
         load_params_npz,
@@ -362,7 +607,9 @@ def main() -> int:
     device = torch.device("cuda", 0)
     card = card_line()
     t0 = time.perf_counter()
+    _build.build_all([egcl_pair._SOURCE, egcl_knn._SOURCE])
     egcl_pair.build()
+    egcl_knn.build()
     log({"phase": "toolchain", "nvidia_smi": card,
          "torch": torch.__version__, "torch_cuda": torch.version.cuda,
          "nvcc": _build.find_nvcc(), "kernel_build_s":
@@ -371,16 +618,27 @@ def main() -> int:
     cfg = load_config_npz(str(SNAPSHOT))
     params = load_params_npz(str(SNAPSHOT))
     fx, graphs, cell = load_fixture(device)
-    kernel = phase_kernels(cfg, params, fx, cell, device)
+    pair = phase_kernels(cfg, params, fx, cell, device)
     phase_denoiser(cfg, params, fx, device)
-    launches = phase_generate(cfg, params, graphs, device)
+    pair_launches = phase_generate(cfg, params, graphs, device)
     phase_headline(cfg, params, cell, device, card)
+    knn = phase_knn_kernel(cfg, params, fx, device)
+    phase_knn_is_dense(cfg, params, fx, device)
+    phase_denoiser(cfg, params, fx, device, k=GOLDEN_K)
+    knn_launches = phase_generate(cfg.replace(neighbor_k=SERVED_K), params,
+                                  graphs, device)
+    phase_large_cell(cfg, params, device, card)
 
-    log({"kernels": [{
-        "name": "egcl_pair", "route": "cuda",
-        "source": "diffusion_model_tpu_torch/csrc/egcl_pair.cu",
-        "replaces": "diffusion_model_tpu/ops/egcl_pallas.py:171",
-        "launches": launches, **kernel}]})
+    log({"kernels": [
+        {"name": "egcl_pair", "route": "cuda",
+         "source": "diffusion_model_tpu_torch/csrc/egcl_pair.cu",
+         "replaces": "diffusion_model_tpu/ops/egcl_pallas.py:171",
+         "launches": pair_launches, **pair},
+        {"name": "egcl_knn", "route": "cuda",
+         "source": "diffusion_model_tpu_torch/csrc/egcl_knn.cu",
+         "replaces": "diffusion_model_tpu/ops/egcl_pallas_sparse.py:177",
+         "launches": knn_launches, **knn},
+    ]})
     print(card_line(), flush=True)
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

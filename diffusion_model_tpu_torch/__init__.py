@@ -2,9 +2,11 @@
 
 Conditional generation of SiO2 local structures from EELS spectra with an
 E(3)-equivariant diffusion model, served from the JAX package's ``.npz``
-snapshots. The per-edge work of every dense EGCL runs in a hand-written
-CUDA kernel on the card (``ops/egcl_pair.py``, ``csrc/egcl_pair.cu``) and in
-its plain PyTorch statement on the CPU.
+snapshots. The per-edge work of every EGCL runs in a hand-written CUDA
+kernel on the card, over the dense pair grid (``ops/egcl_pair.py``,
+``csrc/egcl_pair.cu``) or over kNN neighbour lists for large cells
+(``ops/egcl_knn.py``, ``csrc/egcl_knn.cu``), and in its plain PyTorch
+statement on the CPU.
 
 TF32 is switched off for float32 matmuls and convolutions: TF32 keeps about
 three decimal digits, and the float32 path is the one held to the JAX

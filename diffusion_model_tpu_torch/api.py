@@ -9,7 +9,9 @@
 collated in chunks of ``batch_size`` (the final chunk padded with copies of
 its last condition and trimmed after sampling, so every chunk has one
 shape), each tiled ``gen_num_per_spectrum`` times with the copies adjacent,
-and sampled with NaN retry.
+and sampled with NaN retry. With ``cfg.neighbor_k`` set, every denoiser call
+runs over the kNN lists of the current positions (``knn_edge_fn``, the kNN
+kernel on the card); otherwise over the dense pair grid (``edge_fn``).
 """
 
 from __future__ import annotations
@@ -28,16 +30,20 @@ from diffusion_model_tpu_torch.diffusion.sampler import (
     tile_batch,
 )
 from diffusion_model_tpu_torch.nn.denoiser import DiffusionDenoiser
+from diffusion_model_tpu_torch.ops.egcl_knn import egcl_knn_edges
 from diffusion_model_tpu_torch.ops.egcl_pair import egcl_pair_edges
 from diffusion_model_tpu_torch.train.checkpoint import state_dict_from_flax
 
 
 def denoiser_from_params(cfg: Config, params: dict, device,
-                         edge_fn: Callable = egcl_pair_edges
+                         edge_fn: Callable = egcl_pair_edges,
+                         knn_edge_fn: Callable = egcl_knn_edges
                          ) -> DiffusionDenoiser:
     """A ``DiffusionDenoiser`` on ``device`` holding a flax parameter tree
-    (as ``load_params_npz`` returns it)."""
-    model = DiffusionDenoiser(cfg, edge_fn=edge_fn, device=device)
+    (as ``load_params_npz`` returns it); ``edge_fn`` and ``knn_edge_fn`` do
+    the edge work of the dense and the kNN route."""
+    model = DiffusionDenoiser(cfg, edge_fn=edge_fn, knn_edge_fn=knn_edge_fn,
+                              device=device)
     model.load_state_dict(state_dict_from_flax(params))
     return model
 
@@ -46,7 +52,9 @@ def generate(cfg: Config, params_or_model: Union[dict, DiffusionDenoiser],
              test_graphs: list, generator: Optional[torch.Generator] = None,
              gen_num_per_spectrum: Optional[int] = None, batch_size: int = 16,
              device=None, noise: Optional[NoiseSource] = None,
-             return_trajectory: bool = False, size_predictor=None) -> dict:
+             return_trajectory: bool = False, size_predictor=None,
+             edge_fn: Callable = egcl_pair_edges,
+             knn_edge_fn: Callable = egcl_knn_edges) -> dict:
     """Sample ``gen_num_per_spectrum`` structures per test condition.
 
     Args:
@@ -59,6 +67,8 @@ def generate(cfg: Config, params_or_model: Union[dict, DiffusionDenoiser],
         generator's.
       noise: optional replacement source of standard-normal draws (see
         ``diffusion.sampler``).
+      edge_fn, knn_edge_fn: the edge functions of a model built from
+        ``params`` (see ``denoiser_from_params``).
 
     Returns:
       dict of numpy arrays: ``ids`` (condition i repeated G times,
@@ -79,7 +89,8 @@ def generate(cfg: Config, params_or_model: Union[dict, DiffusionDenoiser],
             if generator is None:
                 raise ValueError("generate needs a device or a generator")
             device = generator.device
-        model = denoiser_from_params(cfg, params_or_model, device)
+        model = denoiser_from_params(cfg, params_or_model, device, edge_fn,
+                                     knn_edge_fn)
     device = torch.device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(cfg.seed)

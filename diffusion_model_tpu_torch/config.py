@@ -2,11 +2,13 @@
 
 The fields and their defaults carry the names of ``diffusion_model_tpu.config``
 so one JSON describes both packages. Only the fields that conditional
-generation on the dense topology reads are here; ``from_dict`` ignores the
-rest (training knobs, mesh settings) and raises ``NotImplementedError`` for
-settings whose code path the port does not have yet. No yaml: PyTorch does
-not depend on PyYAML, so a module-level ``import yaml`` would stop the port
-from importing on a machine that has only PyTorch and numpy.
+generation reads are here (dense topology, or kNN lists with the virtual
+node and the residual node update); ``from_dict`` ignores the rest
+(training knobs, initialisation scales, mesh settings) and raises
+``NotImplementedError`` for settings whose code path the port does not have
+yet. No yaml: PyTorch does not depend on PyYAML, so a module-level
+``import yaml`` would stop the port from importing on a machine that has
+only PyTorch and numpy.
 """
 
 from __future__ import annotations
@@ -18,9 +20,6 @@ import torch
 
 # (field, value the port supports): any other value raises.
 _SUPPORTED = (
-    ("neighbor_k", 0),
-    ("virtual_node", False),
-    ("h_residual", False),
     ("edge_rbf", 0),
     ("global_radius_feature", False),
     ("compat_scalar_norm", False),
@@ -70,14 +69,16 @@ class Config:
     gen_num_per_spectrum: int = 5
     max_nan_retries: int = 10
 
-    # topology and numerics
+    # topology and numerics: neighbor_k > 0 samples over kNN lists
     n_max: int = 16
     neighbor_k: int = 0
     compute_dtype: str = "float32"
 
-    # variants the port rejects (see _SUPPORTED)
+    # large-cell variants: the virtual-node channel and h + mlp_h(...)
     virtual_node: bool = False
     h_residual: bool = False
+
+    # variants the port rejects (see _SUPPORTED)
     edge_rbf: int = 0
     global_radius_feature: bool = False
     compat_scalar_norm: bool = False

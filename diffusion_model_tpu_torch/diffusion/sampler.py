@@ -27,6 +27,7 @@ from diffusion_model_tpu_torch.diffusion.process import (
     reverse_diffuse_one_step,
 )
 from diffusion_model_tpu_torch.ops.com import remove_mean
+from diffusion_model_tpu_torch.ops.edges import knn_edges
 from diffusion_model_tpu_torch.ops.schedules import linspace_f32
 
 NoiseSource = Callable[[Sequence[int]], torch.Tensor]
@@ -89,8 +90,10 @@ def sample(denoise_fn: Callable, schedule: Schedule, cfg: Config,
     """Generate one structure per entry of ``cond``.
 
     Args:
-      denoise_fn: ``(species_ch, pos, spectrum, exo, t_norm, mask) ->
-        (eps_x, eps_h)``, e.g. a ``DiffusionDenoiser``.
+      denoise_fn: ``(species_ch, pos, spectrum, exo, t_norm, mask, edges)
+        -> (eps_x, eps_h)``, e.g. a ``DiffusionDenoiser``. ``edges`` is None
+        (dense topology) unless ``cfg.neighbor_k`` is set; then it is the
+        kNN lists of the current positions, rebuilt at every call.
       schedule: the full ``T+1`` schedule table, on ``cond``'s device.
       generator: source of the default noise; unused when ``noise`` is set.
       cond: conditioning batch; its ``spectrum``, ``exo`` and ``mask`` drive
@@ -117,13 +120,15 @@ def sample(denoise_fn: Callable, schedule: Schedule, cfg: Config,
 
     def denoise(pos, h, t):
         t_norm = m3 * t_norm_table[t]
+        edges = (knn_edges(pos, mask, cfg.neighbor_k) if cfg.neighbor_k
+                 else None)
         eps_x, eps_h = denoise_fn(scale * h, pos, cond.spectrum, cond.exo,
-                                  t_norm, mask)
+                                  t_norm, mask, edges)
         if cfg.guidance_scale > 0:
             # classifier-free guidance: (1+w) * cond - w * uncond
             ex_u, eh_u = denoise_fn(scale * h, pos,
                                     torch.zeros_like(cond.spectrum),
-                                    cond.exo, t_norm, mask)
+                                    cond.exo, t_norm, mask, edges)
             w = cfg.guidance_scale
             eps_x = (1.0 + w) * eps_x - w * ex_u
             eps_h = (1.0 + w) * eps_h - w * eh_u

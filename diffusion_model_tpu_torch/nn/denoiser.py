@@ -6,7 +6,8 @@
     eps_h  = h'[..., :A]
 
 Everything is padded and masked. The topology is the dense pair grid of the
-real nodes, which the edge function derives from ``node_mask``.
+real nodes, which the edge function derives from ``node_mask``, or the kNN
+lists ``(idx, edge_mask)`` the caller passes as ``edges``.
 """
 
 from __future__ import annotations
@@ -20,15 +21,16 @@ from diffusion_model_tpu_torch.config import Config
 from diffusion_model_tpu_torch.nn.compressor import SpectrumCompressor
 from diffusion_model_tpu_torch.nn.egnn import EquivariantGNN
 from diffusion_model_tpu_torch.ops.com import remove_mean
+from diffusion_model_tpu_torch.ops.egcl_knn import egcl_knn_edges
 from diffusion_model_tpu_torch.ops.egcl_pair import egcl_pair_edges
 
 
 class DiffusionDenoiser(nn.Module):
     """Parameters are frozen (``requires_grad=False``): the port serves
-    trained snapshots, and the edge kernel has no backward yet."""
+    trained snapshots, and the edge kernels have no backward yet."""
 
     def __init__(self, cfg: Config, edge_fn: Callable = egcl_pair_edges,
-                 device=None):
+                 knn_edge_fn: Callable = egcl_knn_edges, device=None):
         super().__init__()
         self.cfg = cfg
         dt = cfg.torch_dtype
@@ -40,10 +42,13 @@ class DiffusionDenoiser(nn.Module):
         self.egnn = EquivariantGNN(
             cfg.L, cfg.h_size, cfg.m_hidden_size, cfg.m_size,
             cfg.x_hidden_size, cfg.h_hidden_size, compute_dtype=dt,
-            edge_fn=edge_fn, device=device)
+            edge_fn=edge_fn, knn_edge_fn=knn_edge_fn,
+            h_residual=cfg.h_residual, virtual_node=cfg.virtual_node,
+            device=device)
         self.requires_grad_(False)
 
-    def forward(self, species_t, pos_t, spectrum, exo, t_norm, node_mask):
+    def forward(self, species_t, pos_t, spectrum, exo, t_norm, node_mask,
+                edges=None):
         """Predict the joint noise.
 
         Args:
@@ -53,6 +58,8 @@ class DiffusionDenoiser(nn.Module):
           exo: ``[B, N, 1]`` excited-atom indicator.
           t_norm: ``[B, N, 1]`` diffusion time t/T.
           node_mask: ``[B, N]``.
+          edges: None for the dense topology, or the kNN lists
+            ``(idx [B, N, K] int32, edge_mask [B, N, K])``.
 
         Returns:
           (eps_x ``[B, N, 3]`` CoM-free masked, eps_h ``[B, N, A]`` masked).
@@ -66,7 +73,7 @@ class DiffusionDenoiser(nn.Module):
             feats.append(exo)
         feats.append(t_norm)
         h_in = torch.cat(feats, dim=-1)
-        h_out, x_out = self.egnn(h_in, pos_t, node_mask)
+        h_out, x_out = self.egnn(h_in, pos_t, node_mask, edges)
         mask3 = node_mask.unsqueeze(-1).to(pos_t.dtype)
         eps_x = remove_mean((x_out - pos_t) * mask3, node_mask)
         eps_h = h_out[..., : cfg.atom_type_size] * mask3

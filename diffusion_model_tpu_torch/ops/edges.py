@@ -1,8 +1,11 @@
-"""Dense topology of padded graphs: every ordered pair of real atoms."""
+"""Topology of padded graphs: the dense pair grid of the real atoms, or
+fixed-degree k-nearest-neighbour lists for large cells."""
 
 from __future__ import annotations
 
 import torch
+
+from diffusion_model_tpu_torch.ops.angles import pairwise_sq_dist
 
 
 def dense_pair_mask(node_mask: torch.Tensor) -> torch.Tensor:
@@ -12,3 +15,29 @@ def dense_pair_mask(node_mask: torch.Tensor) -> torch.Tensor:
     n = node_mask.shape[-1]
     eye = torch.eye(n, dtype=pair.dtype, device=pair.device)
     return pair * (1.0 - eye)
+
+
+def knn_edges(pos: torch.Tensor, node_mask: torch.Tensor, k: int):
+    """The ``k`` nearest real neighbours of every node.
+
+    Args:
+      pos: ``[..., N, 3]`` positions; node_mask: ``[..., N]``.
+
+    Returns:
+      (idx ``[..., N, K]`` int32 neighbour indices, nearest first,
+       edge_mask ``[..., N, K]`` float32). Self and padded nodes are never
+      neighbours; slots past a node's real neighbours are masked, and a
+      padded node's row is all masked (its indices are arbitrary).
+    """
+    n = pos.shape[-2]
+    d2 = pairwise_sq_dist(pos)
+    m = node_mask.to(torch.float32)
+    pair_ok = m[..., :, None] * m[..., None, :]
+    eye = torch.eye(n, dtype=torch.float32, device=pos.device)
+    invalid = (1.0 - pair_ok) + eye
+    big = torch.finfo(d2.dtype).max
+    d2_masked = torch.where(invalid > 0, torch.full_like(d2, big), d2)
+    _, idx = torch.topk(-d2_masked, k, dim=-1)
+    edge_mask = (torch.gather(invalid, -1, idx) == 0).to(torch.float32)
+    edge_mask = edge_mask * m[..., :, None]
+    return idx.to(torch.int32), edge_mask

@@ -1,0 +1,194 @@
+"""EGCL edge work over fixed-degree kNN neighbour lists: the CUDA kernel and
+its plain PyTorch statement.
+
+``egcl_knn_edges`` replaces ``diffusion_model_tpu/ops/egcl_pallas_sparse.py:177
+egcl_knn_kernel``. For graph b, target i and slot k < K, with source
+j = idx[b, i, k] and edge weight em = edge_mask[b, i, k]::
+
+    pre_m   = Am_i + h_j @ Wm_j + d2_ij * w_dm
+    m       = silu(silu(pre_m) @ W2m + b2m)
+    m_sum_i = sum_k m * sigmoid(m @ wa + ba) * em
+    pre_x   = Ax_i + h_j @ Wx_j + d2_ij * w_dx
+    s       = silu(silu(pre_x) @ W2x + b2x) @ wx3 + bx3
+    x_out_i = x_i + sum_k (x_i - x_j) * s / (|x_i - x_j| + 1) * em
+
+The kernel (``csrc/egcl_knn.cu``) shares the dense kernel's edge tile and
+epilogue (``csrc/egcl_edge_tile.cuh``): one block owns whole targets with
+all their K slots, so the sum over the slots is taken in the block in a
+fixed order with no atomics; it gathers h_j and x_j by ``idx`` into shared
+memory and computes the j-side first layer ``h_j @ W_j`` per edge, so only
+the H-wide node rows cross device memory. A slot whose index lies outside
+``[0, N)`` is treated as masked: the kernel never reads outside the graph.
+
+On CPU tensors ``egcl_knn_edges`` runs ``egcl_knn_edges_reference``; on CUDA
+tensors it launches the kernel or raises. Serving needs no gradient, so an
+input that requires grad is refused.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+# Launches of the CUDA kernel in this process; only egcl_knn_edges adds to
+# it, right after a launch was accepted.
+egcl_knn_launches = 0
+
+_SOURCE = "egcl_knn.cu"
+MAX_H = 48   # node feature width the kernel takes (csrc/egcl_knn.cu kMaxH)
+
+
+def gather_nodes(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``arr [B, N, D]`` rows picked by ``idx [B, N, K]`` -> ``[B, N, K, D]``."""
+    rows = torch.arange(arr.shape[0], device=arr.device)[:, None, None]
+    return arr[rows, idx.long()]
+
+
+def egcl_knn_edges_reference(am_i, ax_i, h, x, idx, edge_mask, wm_j, wx_j,
+                             w_dm, w_dx, w2m, b2m, wa, ba, w2x, b2x, wx3,
+                             bx3):
+    """Plain float32 statement of the kernel's math (materialises the
+    ``[B, N, K, F]`` edge tensors), as ``_edge_math_sparse`` states it.
+    Returns (m_sum [B,N,Fm], x_out [B,N,3])."""
+    f32 = torch.float32
+    am_i, ax_i, h, x = (v.to(f32) for v in (am_i, ax_i, h, x))
+    h_j = gather_nodes(h, idx)                               # [B,N,K,H]
+    x_j = gather_nodes(x, idx)
+    diff = x[:, :, None, :] - x_j
+    d2 = (diff * diff).sum(dim=-1, keepdim=True)             # [B,N,K,1]
+    em = edge_mask[..., None].to(f32)
+
+    pre_m = am_i[:, :, None, :] + h_j @ wm_j.to(f32) + d2 * w_dm.to(f32)
+    m = F.silu(F.silu(pre_m) @ w2m.to(f32) + b2m.to(f32))
+    att = torch.sigmoid(m @ wa.to(f32) + ba.to(f32))
+    m_sum = (m * att * em).sum(dim=2)                        # [B,N,Fm]
+
+    pre_x = ax_i[:, :, None, :] + h_j @ wx_j.to(f32) + d2 * w_dx.to(f32)
+    u = F.silu(F.silu(pre_x) @ w2x.to(f32) + b2x.to(f32))
+    s = u @ wx3.to(f32) + bx3.to(f32)                        # [B,N,K,1]
+    norm = torch.sqrt(torch.where(em > 0, d2.clamp_min(1e-12),
+                                  torch.ones_like(d2)))
+    upd = diff * s / (norm + 1.0) * em
+    return m_sum, x + upd.sum(dim=2)
+
+
+_NAMES = ("am_i", "ax_i", "h", "x", "idx", "edge_mask", "wm_j", "wx_j",
+          "w_dm", "w_dx", "w2m", "b2m", "wa", "ba", "w2x", "b2x", "wx3",
+          "bx3")
+_COMPUTE = ("am_i", "ax_i", "h", "wm_j", "wx_j", "w_dm", "w_dx", "w2m",
+            "w2x")
+
+
+def _expected_shapes(b, n, hdim, k, f1, fm):
+    return {"am_i": (b, n, f1), "ax_i": (b, n, f1), "h": (b, n, hdim),
+            "x": (b, n, 3), "idx": (b, n, k), "edge_mask": (b, n, k),
+            "wm_j": (hdim, f1), "wx_j": (hdim, f1), "w_dm": (1, f1),
+            "w_dx": (1, f1), "w2m": (f1, fm), "b2m": (1, fm),
+            "wa": (fm, 1), "ba": (1, 1), "w2x": (f1, f1), "b2x": (1, f1),
+            "wx3": (f1, 1), "bx3": (1, 1)}
+
+
+def _check(tensors: dict) -> torch.dtype:
+    """Raise on anything the kernel does not take; return the compute dtype."""
+    device = tensors["am_i"].device
+    b, n, f1 = tensors["am_i"].shape
+    hdim = tensors["h"].shape[-1]
+    k = tensors["idx"].shape[-1]
+    fm = tensors["w2m"].shape[-1]
+    cdt = tensors["am_i"].dtype
+    if cdt not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"compute dtype {cdt} is neither bfloat16 nor float32")
+    if f1 % 64 or fm % 64 or fm > 256:
+        raise ValueError(
+            f"kernel takes F1 and Fm in multiples of 64 with Fm <= 256; "
+            f"got F1={f1}, Fm={fm}")
+    if not 1 <= hdim <= MAX_H:
+        raise ValueError(
+            f"kernel takes node features of width 1..{MAX_H}; got H={hdim}")
+    for name, want in _expected_shapes(b, n, hdim, k, f1, fm).items():
+        t = tensors[name]
+        dtype = (torch.int32 if name == "idx"
+                 else cdt if name in _COMPUTE else torch.float32)
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, am_i on {device}")
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, want {want}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} has dtype {t.dtype}, want {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+        if t.requires_grad:
+            raise ValueError(
+                f"{name} requires grad: the kernel has no backward yet")
+    return cdt
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    from diffusion_model_tpu_torch.ops import _build
+
+    lib = _build.load(_SOURCE)
+    lib.egcl_knn_forward.argtypes = (
+        [ctypes.c_int] + [ctypes.c_void_p] * 20 + [ctypes.c_int] * 6
+        + [ctypes.c_void_p])
+    lib.egcl_knn_forward.restype = ctypes.c_int
+    lib.egcl_knn_error_string.argtypes = [ctypes.c_int]
+    lib.egcl_knn_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def build() -> None:
+    """Compile and load the kernel library now (else at the first launch)."""
+    _library()
+
+
+def egcl_knn_edges(am_i, ax_i, h, x, idx, edge_mask, wm_j, wx_j, w_dm, w_dx,
+                   w2m, b2m, wa, ba, w2x, b2x, wx3, bx3):
+    """Fused kNN EGCL edge work (see module docstring).
+
+    Args:
+      am_i, ax_i: ``[B, N, F1]`` i-side first-layer projections (with the
+        bias) in the compute dtype (bfloat16 or float32).
+      h: ``[B, N, H]`` node features in the compute dtype, H <= 48.
+      x: ``[B, N, 3]`` float32 coordinates.
+      idx: ``[B, N, K]`` int32 neighbour indices; edge_mask: ``[B, N, K]``
+        float32 (``ops.edges.knn_edges``).
+      wm_j, wx_j: ``[H, F1]`` j-blocks of the fused first-layer kernels;
+        w_dm, w_dx ``[1, F1]``; w2m ``[F1, Fm]``; w2x ``[F1, F1]``; all in
+        the compute dtype. b2m ``[1, Fm]``, wa ``[Fm, 1]``, ba ``[1, 1]``,
+        b2x ``[1, F1]``, wx3 ``[F1, 1]``, bx3 ``[1, 1]`` float32.
+
+    Returns:
+      (m_sum ``[B, N, Fm]`` float32, x_out ``[B, N, 3]`` float32).
+    """
+    global egcl_knn_launches
+    args = (am_i, ax_i, h, x, idx, edge_mask, wm_j, wx_j, w_dm, w_dx, w2m,
+            b2m, wa, ba, w2x, b2x, wx3, bx3)
+    device = am_i.device
+    if device.type == "cpu":
+        return egcl_knn_edges_reference(*args)
+    if device.type != "cuda":
+        raise ValueError(f"no EGCL kNN kernel for device {device}")
+    cdt = _check(dict(zip(_NAMES, args)))
+    b, n, f1 = am_i.shape
+    hdim, k, fm = h.shape[-1], idx.shape[-1], w2m.shape[-1]
+    m_sum = torch.empty((b, n, fm), dtype=torch.float32, device=device)
+    x_out = torch.empty((b, n, 3), dtype=torch.float32, device=device)
+    lib = _library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.egcl_knn_forward(
+            int(cdt == torch.bfloat16), *(t.data_ptr() for t in args),
+            m_sum.data_ptr(), x_out.data_ptr(), b, n, hdim, k, f1, fm,
+            stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"egcl_knn kernel launch failed: "
+            f"{lib.egcl_knn_error_string(rc).decode()} (cudaError {rc})")
+    egcl_knn_launches += 1
+    return m_sum, x_out

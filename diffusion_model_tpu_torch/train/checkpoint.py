@@ -59,7 +59,9 @@ def _flatten(tree: dict, prefix: str = "") -> dict:
 
 # Modules held as ``nn.Linear`` (weight ``[out, in]``): their flax kernels
 # are transposed. Every other kernel keeps the flax ``[in, out]`` layout,
-# which is the layout the EGCL edge kernel reads.
+# which is the layout the EGCL edge kernels and the virtual-node channel
+# (``vnode_in``, ``vnode_pool``, ``vnode_out``, ``vnode_x``,
+# ``vnode_x_head``) read. The match is by prefix of the module's own name.
 _LINEAR_MODULES = ("mlp_h_dense0", "mlp_h_dense1", "dense")
 
 
@@ -74,7 +76,8 @@ def state_dict_from_flax(tree: dict) -> dict:
     ``tree`` is the nested dict of ``load_params_npz`` (with or without the
     top-level ``denoiser`` key). Names carry over with ``/`` read as ``.``;
     ``kernel`` becomes ``weight`` (transposed) on the ``nn.Linear`` modules
-    of the spectrum compressor and the node MLP. The values are float32
+    of the spectrum compressor and the node MLP; the virtual-node channel's
+    kernels stay ``[in, out]``. The values are float32
     tensors; the denoiser casts to ``cfg.compute_dtype`` where it computes.
     ``DiffusionDenoiser.load_state_dict`` (strict) rejects a tree whose
     names or shapes do not fit the config.
@@ -83,7 +86,7 @@ def state_dict_from_flax(tree: dict) -> dict:
     out = {}
     for key, value in _flatten(params).items():
         module_path, leaf = key.rsplit("/", 1)
-        t = torch.as_tensor(np.asarray(value, np.float32))
+        t = torch.from_numpy(np.array(value, np.float32))
         if _is_linear(module_path):
             if leaf == "kernel":
                 leaf, t = "weight", t.T

@@ -18,6 +18,7 @@ from diffusion_model_tpu_torch import api
 from diffusion_model_tpu_torch.config import from_dict
 from torch_port_fixtures import (
     Replay,
+    SnapshotState,
     flagship,
     flagship_conditions,
     jax_sample_draws,
@@ -29,16 +30,6 @@ COPIES = 2
 BATCH = 2
 
 
-class _SnapshotState:
-    """The one Trainer-state method ``jax_api.generate`` calls."""
-
-    def __init__(self, params):
-        self._params = params
-
-    def eval_params(self, cfg):
-        return self._params
-
-
 @pytest.fixture(scope="module")
 def both():
     jcfg, params = flagship()
@@ -46,7 +37,7 @@ def both():
                         sample_grid="snr")
     graphs = flagship_conditions(jcfg)[:3]
     key = jax.random.key(23)
-    want = jax_api.generate(jcfg, Trainer(jcfg), _SnapshotState(params),
+    want = jax_api.generate(jcfg, Trainer(jcfg), SnapshotState(params),
                             graphs, key=key, gen_num_per_spectrum=COPIES,
                             batch_size=BATCH)
 

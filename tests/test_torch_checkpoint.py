@@ -73,7 +73,14 @@ def test_config_matches_jax_field_for_field():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("neighbor_k", 32), ("virtual_node", True), ("h_residual", True),
+    ("neighbor_k", 32), ("virtual_node", True), ("h_residual", True)])
+def test_large_cell_settings_carry_over(field, value):
+    d = {field: value}
+    assert getattr(jax_from_dict(d), field) == value
+    assert getattr(port_config.from_dict(d), field) == value
+
+
+@pytest.mark.parametrize("field,value", [
     ("edge_rbf", 8), ("global_radius_feature", True),
     ("compat_scalar_norm", True), ("ring_sample", True),
     ("x_parameterization", "x0"), ("noise_schedule", "learned"),

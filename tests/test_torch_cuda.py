@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain version, on the card.
+"""The port's CUDA kernels against their plain versions, on the card.
 
 Needs a CUDA card; skipped elsewhere. This file imports no JAX, so it also
 runs on a machine that has only PyTorch (the tests' conftest.py imports
@@ -10,8 +10,8 @@ JAX, hence ``--noconftest`` there):
 import pytest
 import torch
 
-from diffusion_model_tpu_torch.ops import egcl_pair
-from torch_port_fixtures import edge_args, edge_inputs
+from diffusion_model_tpu_torch.ops import egcl_knn, egcl_pair
+from torch_port_fixtures import edge_args, edge_inputs, knn_args, knn_inputs
 
 torch.set_num_threads(4)
 
@@ -19,8 +19,8 @@ torch.set_num_threads(4)
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel is CUDA C++ for sm_90a "
-                    "and has no CPU mode")
+        pytest.skip("needs a CUDA card: the kernels are CUDA C++ for sm_90a "
+                    "and have no CPU mode")
     return torch.device("cuda", 0)
 
 
@@ -71,3 +71,69 @@ def test_grad_inputs_refused_on_the_card(cuda_device):
     args[8] = args[8].clone().requires_grad_(True)
     with pytest.raises(ValueError, match="requires grad"):
         egcl_pair.egcl_pair_edges(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,k", [(80, 16, 15),    # served chunk, K = N-1
+                                   (1, 2048, 32),   # large cell
+                                   (3, 24, 7),
+                                   (2, 40, 20),     # K does not divide 64
+                                   (2, 90, 70)])    # K above one tile
+def test_knn_kernel_matches_plain(cuda_device, dtype, b, n, k):
+    inputs = knn_inputs(11, b=b, n=n, k=k, hdim=36, f1=1024, fm=256,
+                        n_real=[n - 1 - (g % 5) for g in range(b)])
+    args = knn_args(inputs, cuda_device, dtype)
+    before = egcl_knn.egcl_knn_launches
+    got_m, got_x = egcl_knn.egcl_knn_edges(*args)
+    torch.cuda.synchronize()
+    assert egcl_knn.egcl_knn_launches == before + 1
+    want_m, want_x = egcl_knn.egcl_knn_edges_reference(*args)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got_m, want_m, rtol=2e-4, atol=2e-5)
+        torch.testing.assert_close(got_x, want_x, rtol=2e-4, atol=2e-5)
+    else:
+        assert _rel_l2(got_m, want_m) <= 1e-2
+        assert _rel_l2(got_x - args[3], want_x - args[3]) <= 1e-2
+    pad = args[5].sum(dim=-1) == 0           # targets with no live slot
+    assert bool(pad.any())
+    assert torch.equal(got_m[pad], torch.zeros_like(got_m[pad]))
+    assert torch.equal(got_x[pad], args[3][pad])
+
+
+@pytest.mark.cuda
+def test_knn_kernel_is_deterministic(cuda_device):
+    args = knn_args(knn_inputs(12, b=3, n=64, k=32, hdim=36, f1=1024,
+                               fm=256, n_real=(64, 40, 9)),
+                    cuda_device, torch.bfloat16)
+    first = egcl_knn.egcl_knn_edges(*args)
+    second = egcl_knn.egcl_knn_edges(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_knn_kernel_never_reads_outside_the_graph(cuda_device):
+    inputs = knn_inputs(13, b=2, n=24, k=6, hdim=36, f1=256, fm=64,
+                        n_real=(24, 24))
+    args = list(knn_args(inputs, cuda_device))
+    wild = args[4].clone()
+    wild[:, :, -1] = 1 << 30                 # slot out of range, unmasked
+    wild[0, 0, 0] = -5
+    got = egcl_knn.egcl_knn_edges(*args[:4], wild, *args[5:])
+    em = args[5].clone()
+    em[:, :, -1] = 0.0
+    em[0, 0, 0] = 0.0
+    want = egcl_knn.egcl_knn_edges(*args[:5], em, *args[6:])
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_knn_grad_inputs_refused_on_the_card(cuda_device):
+    args = list(knn_args(knn_inputs(14, f1=64, fm=64), cuda_device))
+    args[6] = args[6].clone().requires_grad_(True)
+    before = egcl_knn.egcl_knn_launches
+    with pytest.raises(ValueError, match="requires grad"):
+        egcl_knn.egcl_knn_edges(*args)
+    assert egcl_knn.egcl_knn_launches == before

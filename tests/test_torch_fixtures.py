@@ -33,7 +33,8 @@ def test_inputs_are_current(pair, key):
     np.testing.assert_array_equal(committed[key], fresh[key])
 
 
-@pytest.mark.parametrize("key", ["eps_x_float32", "eps_h_float32"])
+@pytest.mark.parametrize("key", ["eps_x_float32", "eps_h_float32",
+                                 "knn6_eps_x_float32", "knn6_eps_h_float32"])
 def test_float32_goldens_are_current(pair, key):
     # XLA's CPU kernels may sum in another order on another CPU
     committed, fresh = pair
@@ -41,7 +42,8 @@ def test_float32_goldens_are_current(pair, key):
                                atol=1e-6)
 
 
-@pytest.mark.parametrize("key", ["eps_x_bfloat16", "eps_h_bfloat16"])
+@pytest.mark.parametrize("key", ["eps_x_bfloat16", "eps_h_bfloat16",
+                                 "knn6_eps_x_bfloat16", "knn6_eps_h_bfloat16"])
 def test_bfloat16_goldens_are_current(pair, key):
     committed, fresh = pair
     err = np.linalg.norm(committed[key] - fresh[key])

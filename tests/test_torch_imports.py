@@ -24,11 +24,11 @@ def port_modules():
 
 def test_every_module_is_listed():
     names = port_modules()
-    for expected in ("api", "config", "data.batch", "diffusion.process",
-                     "diffusion.sampler", "nn.compressor", "nn.denoiser",
-                     "nn.egnn", "ops.angles", "ops.com", "ops.edges",
-                     "ops.egcl_pair", "ops.schedules", "ops._build",
-                     "train.checkpoint"):
+    for expected in ("api", "config", "data.batch", "data.synthetic",
+                     "diffusion.process", "diffusion.sampler",
+                     "nn.compressor", "nn.denoiser", "nn.egnn", "ops.angles",
+                     "ops.com", "ops.edges", "ops.egcl_knn", "ops.egcl_pair",
+                     "ops.schedules", "ops._build", "train.checkpoint"):
         assert f"diffusion_model_tpu_torch.{expected}" in names
 
 

@@ -9,7 +9,9 @@
     spectrum_size=200)`` of ``bench.py``;
   * goldens of ``DiffusionDenoiser.apply`` on the ``artifacts/q_predef_r5.npz``
     weights, in float32 and in bfloat16, at t/T = 0.1, 0.5 and 0.9 on the
-    27 conditions noised from a numpy seed (the noisy inputs are stored).
+    27 conditions noised from a numpy seed (the noisy inputs are stored):
+    over the dense pair grid (``eps_x_float32`` ...) and over the kNN lists
+    ``knn_edges(pos_t, mask, 6)`` (``knn6_eps_x_float32`` ...).
 
 The committed copy is ``tests/fixtures/torch_port/flagship.npz``; the port's
 GPU check reads it because the JAX package's data modules need JAX. A test
@@ -19,8 +21,9 @@ rebuilds it and compares, so it cannot go stale. To rewrite it:
 
 The module also replays the JAX sampler's random draws for the port's
 noise source (``jax_sample_draws``, ``Replay``) and makes inputs for the
-EGCL edge function (``edge_inputs``, ``edge_args``). It imports JAX only
-inside the functions that need it, so the card's tests can use the rest.
+EGCL edge functions (``edge_inputs``/``edge_args`` for the dense one,
+``knn_inputs``/``knn_args`` for the kNN one). It imports JAX only inside
+the functions that need it, so the card's tests can use the rest.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ REPO = Path(__file__).resolve().parents[1]
 FIXTURE = REPO / "tests" / "fixtures" / "torch_port" / "flagship.npz"
 SNAPSHOT = REPO / "artifacts" / "q_predef_r5.npz"
 T_FRACS = (0.1, 0.5, 0.9)
+KNN_K = 6            # neighbours per node of the kNN goldens
 NUM_GRAPHS = 256     # dataset size the flagship was trained on
 CELL_ATOMS = 192
 
@@ -97,6 +101,7 @@ def build() -> dict:
     from diffusion_model_tpu.data.synthetic import amorphous_cell
     from diffusion_model_tpu.diffusion.process import predefined_schedule
     from diffusion_model_tpu.nn import DiffusionDenoiser
+    from diffusion_model_tpu.ops.edges import knn_edges
 
     cfg, params = flagship()
     test = flagship_conditions(cfg)
@@ -122,17 +127,21 @@ def build() -> dict:
     out["in_species_t"] = np.stack([i[0] for i in ins])
     out["in_pos_t"] = np.stack([i[1] for i in ins])
     out["in_t_norm"] = np.stack([i[2] for i in ins])
-    pair_mask = batch.pair_mask()
+    topologies = {
+        "": lambda pos: batch.pair_mask(),
+        f"knn{KNN_K}_": lambda pos: knn_edges(pos, batch.mask, KNN_K),
+    }
     for dt in ("float32", "bfloat16"):
         model = DiffusionDenoiser(cfg.replace(compute_dtype=dt))
         apply = jax.jit(model.apply)
-        eps = [apply(params["denoiser"], jnp.asarray(sp), jnp.asarray(p),
-                     batch.spectrum, batch.exo, jnp.asarray(tn), batch.mask,
-                     pair_mask) for sp, p, tn in ins]
-        out[f"eps_x_{dt}"] = np.stack([np.asarray(e[0], np.float32)
-                                       for e in eps])
-        out[f"eps_h_{dt}"] = np.stack([np.asarray(e[1], np.float32)
-                                       for e in eps])
+        for prefix, edges in topologies.items():
+            eps = [apply(params["denoiser"], jnp.asarray(sp), jnp.asarray(p),
+                         batch.spectrum, batch.exo, jnp.asarray(tn),
+                         batch.mask, edges(jnp.asarray(p)))
+                   for sp, p, tn in ins]
+            for i, field in enumerate(("eps_x", "eps_h")):
+                out[f"{prefix}{field}_{dt}"] = np.stack(
+                    [np.asarray(e[i], np.float32) for e in eps])
     return out
 
 
@@ -156,6 +165,17 @@ def jax_sample_draws(key, b: int, n: int, a_dim: int, steps: int,
     if stochastic:
         draws += [normal(k1, (b, n, 3)), normal(k2, (b, n, a_dim))]
     return draws
+
+
+class SnapshotState:
+    """The one Trainer-state method ``diffusion_model_tpu.api.generate``
+    calls, over a loaded snapshot's parameters."""
+
+    def __init__(self, params):
+        self._params = params
+
+    def eval_params(self, cfg):
+        return self._params
 
 
 class Replay:
@@ -215,6 +235,71 @@ def edge_args(inputs: dict, device="cpu", dtype=None) -> tuple:
         torch.from_numpy(inputs[k]).to(
             device, dtype if k in _EDGE_COMPUTE else torch.float32)
         for k in EDGE_NAMES)
+
+
+KNN_NAMES = ("am_i", "ax_i", "h", "x", "idx", "edge_mask", "wm_j", "wx_j",
+             "w_dm", "w_dx", "w2m", "b2m", "wa", "ba", "w2x", "b2x", "wx3",
+             "bx3")
+_KNN_COMPUTE = {"am_i", "ax_i", "h", "wm_j", "wx_j", "w_dm", "w_dx", "w2m",
+                "w2x"}
+
+
+def knn_lists(x: np.ndarray, mask: np.ndarray, k: int):
+    """Numpy statement of ``knn_edges``: the ``k`` nearest real neighbours
+    of every node (self and padding excluded), nearest first; slots past
+    the real neighbours and rows of padded nodes are masked."""
+    n = x.shape[-2]
+    d2 = ((x[..., :, None, :] - x[..., None, :, :]) ** 2).sum(-1)
+    invalid = (1.0 - mask[..., :, None] * mask[..., None, :]) + np.eye(n)
+    d2 = np.where(invalid > 0, np.inf, d2)
+    idx = np.argsort(d2, axis=-1, kind="stable")[..., :k]
+    em = (np.take_along_axis(invalid, idx, axis=-1) == 0) * mask[..., None]
+    return idx.astype(np.int32), em.astype(np.float32)
+
+
+def knn_inputs(seed=0, b=2, n=16, k=4, hdim=10, f1=32, fm=16,
+               n_real=(11, 16)) -> dict:
+    """Numpy inputs of the kNN EGCL edge function (K2's layout), graphs
+    padded to ``n`` nodes with ``n_real[g]`` real ones, neighbour lists
+    from ``knn_lists``, scaled to stay O(1)."""
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape, scale=1.0):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    mask = np.zeros((b, n), np.float32)
+    for g, real in enumerate(n_real):
+        mask[g, :real] = 1.0
+    x = normal(b, n, 3, scale=2.0)
+    idx, em = knn_lists(x, mask, k)
+    return {
+        "am_i": normal(b, n, f1, scale=0.5), "ax_i": normal(b, n, f1, scale=0.5),
+        "h": normal(b, n, hdim, scale=0.5), "x": x, "idx": idx,
+        "edge_mask": em,
+        "wm_j": normal(hdim, f1, scale=hdim ** -0.5),
+        "wx_j": normal(hdim, f1, scale=hdim ** -0.5),
+        "w_dm": normal(1, f1, scale=0.1), "w_dx": normal(1, f1, scale=0.1),
+        "w2m": normal(f1, fm, scale=f1 ** -0.5), "b2m": normal(1, fm, scale=0.1),
+        "wa": normal(fm, 1, scale=fm ** -0.5), "ba": normal(1, 1, scale=0.1),
+        "w2x": normal(f1, f1, scale=f1 ** -0.5), "b2x": normal(1, f1, scale=0.1),
+        "wx3": normal(f1, 1, scale=f1 ** -0.5), "bx3": normal(1, 1, scale=0.1),
+    }
+
+
+def knn_args(inputs: dict, device="cpu", dtype=None) -> tuple:
+    """``knn_inputs`` as torch tensors in argument order: the projections,
+    h and the big kernels in ``dtype`` (default float32), idx int32, the
+    rest float32."""
+    import torch
+
+    dtype = dtype or torch.float32
+
+    def tensor(k):
+        want = (torch.int32 if k == "idx"
+                else dtype if k in _KNN_COMPUTE else torch.float32)
+        return torch.from_numpy(inputs[k]).to(device, want)
+
+    return tuple(tensor(k) for k in KNN_NAMES)
 
 
 def main() -> int:
