@@ -6,9 +6,9 @@
 Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; imports nothing of JAX.
 Phases, each printed as one JSON line:
 
-  1. toolchain: the card (``nvidia-smi``), CUDA, nvcc, and the build of both
-     EGCL kernels from ``diffusion_model_tpu_torch/csrc/`` (one nvcc each,
-     started together);
+  1. toolchain: the card (``nvidia-smi``), CUDA, nvcc, and the build of the
+     six kernels from ``diffusion_model_tpu_torch/csrc/`` (both EGCL kernels
+     and the four probes; one nvcc each, started together);
   2. the pair kernel (K1) against its plain version at flagship width
      (F1=1024, Fm=256) on the inputs the main path gives it (B x N = 80 x 16
      and 1 x 192), float32 variant and bfloat16 variant, padded rows inert,
@@ -35,11 +35,21 @@ Phases, each printed as one JSON line:
      ``amorphous_cell(seed=0, num_atoms=2048)``, B=1, with the flagship's
      EGCL weights and seeded virtual-node weights: seconds per structure at
      1000 and 250 strided steps through K2, 250 through the plain version,
-     and ms per denoiser call of both routes at 2 x 512.
+     and ms per denoiser call of both routes at 2 x 512;
+ 11-14. the hardware probes ported from ``benchmarks/probe_*.py``, each
+     held against its plain version at the TPU probe's shapes and then
+     driven as its ``main()`` drives it (launches counted over that run
+     only), with the cuBLAS yardstick where there is one: P2 the chained
+     int8/bf16 products (``probes.matmul_rate``), P4 tensor-core and
+     CUDA-core work in one loop (``probes.overlap``), P3 SiLU(a @ w) with and
+     without an overlapped epilogue (``probes.pipeline``), P1 the int8 EGCL
+     edge tile in stages at N=192 (``probes.kernel_stages``).
 
 Any failed check raises, and the script exits non-zero without its result
-line. The last lines are the kernel table, the card's name and power limit,
-and ``{"ok": true, "device": {...}}``.
+line. The last lines are the kernel table (with each kernel's bound: its
+operations at the published dense peak, or its bytes at 3.35 TB/s, the
+larger), the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -252,12 +262,14 @@ def phase_kernels(cfg, params, fx, cell, device) -> dict:
                 checks.append(rec)
             timings[f"{name}_{dtype_name}"] = time_kernel("egcl_pair",
                                                           calls[0])
+            timings[f"{name}_{dtype_name}"].update(pair_bound(calls[0]))
     main = timings["80x16_bfloat16"]
     main_err = max(r["max_abs_err"] for r in checks
                    if r["dtype"] == "bfloat16" and r["shape"] == [80, 16])
     log({"phase": "kernel_vs_plain", "checks": checks, "timings": timings})
     return {"max_abs_err": main_err, "ms": main["kernel_ms"],
-            "plain_ms": main["plain_ms"]}
+            "plain_ms": main["plain_ms"], "library_ms": None,
+            **{k: main[k] for k in ("bound_ms", "bound_by", "live_edges")}}
 
 
 def phase_knn_kernel(cfg, params, fx, device) -> dict:
@@ -285,13 +297,15 @@ def phase_knn_kernel(cfg, params, fx, device) -> dict:
                 checks.append(rec)
             timings[f"{name}_{dtype_name}"] = time_kernel("egcl_knn",
                                                           calls[0])
+            timings[f"{name}_{dtype_name}"].update(knn_bound(calls[0]))
     main = timings["80x16_k15_bfloat16"]
     main_err = max(r["max_abs_err"] for r in checks
                    if r["dtype"] == "bfloat16" and r["shape"] == [80, 16])
     log({"phase": "knn_kernel_vs_plain", "checks": checks,
          "timings": timings})
     return {"max_abs_err": main_err, "ms": main["kernel_ms"],
-            "plain_ms": main["plain_ms"]}
+            "plain_ms": main["plain_ms"], "library_ms": None,
+            **{k: main[k] for k in ("bound_ms", "bound_by", "live_edges")}}
 
 
 def phase_knn_is_dense(cfg, params, fx, device) -> None:
@@ -584,6 +598,159 @@ def phase_large_cell(cfg, params, device, card: str) -> None:
             f"kernel-route denoiser calls")
 
 
+def edge_flops(f1: int, fm: int, h: int = 0) -> int:
+    """Tensor-core FLOPs of one live edge: both second-layer products, and
+    for K2 the j-side first layer (4 H F1)."""
+    return 2 * f1 * fm + 2 * f1 * f1 + 4 * h * f1
+
+
+def peak_kind(t) -> str:
+    """The peak an EGCL kernel's products run at: bf16 tensor cores, or
+    float32 FMAs for the float32 variant."""
+    return "f32" if t.element_size() == 4 else "bf16"
+
+
+def pair_bound(args) -> dict:
+    """K1 at these inputs: live ordered pairs i != j of real atoms; bytes of
+    every argument and of m_sum and x_out."""
+    from diffusion_model_tpu_torch.probes._common import bound, nbytes
+
+    real = args[5][..., 0].sum(dim=1)
+    pairs = float((real * (real - 1)).sum())
+    f1, fm = args[8].shape                  # w2m
+    b, n = args[0].shape[:2]
+    return {"live_edges": pairs, **bound(
+        nbytes(*args) + b * n * (fm + 3) * 4,
+        **{peak_kind(args[0]): pairs * edge_flops(f1, fm)})}
+
+
+def knn_bound(args) -> dict:
+    """K2 at these inputs: live kNN slots."""
+    from diffusion_model_tpu_torch.probes._common import bound, nbytes
+
+    h, f1 = args[6].shape                   # wm_j
+    fm = args[10].shape[-1]                 # w2m
+    b, n = args[0].shape[:2]
+    edges = float(args[5].sum())
+    return {"live_edges": edges, **bound(
+        nbytes(*args) + b * n * (fm + 3) * 4,
+        **{peak_kind(args[0]): edges * edge_flops(f1, fm, h)})}
+
+
+def probe_kernel(name: str, source: str, replaces: str, launches: int,
+                 **numbers) -> dict:
+    if launches == 0:
+        raise AssertionError(f"{name} was never launched on its probe's path")
+    return {"name": name, "route": "cuda",
+            "source": f"diffusion_model_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, **numbers}
+
+
+def phase_matmul_rate(device, card: str) -> dict:
+    """P2: the chain kernel against its plain version at M = 512 (int8 bit
+    for bit), then the probe's timings at M = 512 and a card-filling M."""
+    import torch
+
+    from diffusion_model_tpu_torch.probes import matmul_rate as mr
+
+    checks = mr.check_on_card(device)
+    plain_ms = {}
+    for dtype in (torch.int8, torch.bfloat16):
+        a, w = mr.make_inputs(mr.M, mr.N, dtype, device)
+        plain_ms[str(dtype)[6:]] = cuda_ms(
+            lambda: mr.chain_reference(a, w), 3)
+    mr.probe_matmul_rate_launches = 0
+    timings = mr.measure(device)
+    launches = mr.probe_matmul_rate_launches
+    log({"phase": "probe_matmul_rate", "card": card, "checks": checks,
+         "timings": timings, "plain_ms_m512": plain_ms, "launches": launches,
+         "library": "torch.matmul / torch._int_mm chains (cuBLAS)"})
+    main = next(r for r in timings
+                if (r["variant"], r["shape"]) == ("block_int8", "tpu"))
+    library = next(r for r in timings
+                   if (r["variant"], r["shape"]) == ("library_int8", "tpu"))
+    return probe_kernel(
+        "probe_matmul_rate", "probe_matmul_rate.cu",
+        "benchmarks/probe_matmul_rate.py:45", launches,
+        max_abs_err=max(r["max_abs_err"] for r in checks
+                        if r["dtype"] == "int8"),
+        ms=main["ms"], plain_ms=plain_ms["int8"], library_ms=library["ms"],
+        **{k: main[k] for k in ("bound_ms", "bound_by", "bound_ms_by")})
+
+
+def phase_overlap(device, card: str) -> dict:
+    """P4: the three modes against the plain version at M = 512, then the
+    probe's t_mxu, t_vpu, t_both and overlap fraction."""
+    from diffusion_model_tpu_torch.probes import overlap as ov
+
+    checks = ov.check_on_card(device)
+    a, w, y = ov.make_inputs(ov.M, ov.N, device)
+    plain_ms = cuda_ms(lambda: ov.overlap_reference(a, w, y), 3)
+    ov.probe_overlap_launches = 0
+    timings = ov.measure(device, reps=10)
+    launches = ov.probe_overlap_launches
+    log({"phase": "probe_overlap", "card": card, "checks": checks,
+         "timings": timings, "launches": launches})
+    main = timings[0]                        # M = 512, mode "both"
+    return probe_kernel(
+        "probe_overlap", "probe_overlap.cu",
+        "benchmarks/probe_overlap.py:45", launches,
+        max_abs_err=max(r["max_abs_err"] for r in checks
+                        if r["steps"] != ov.STEPS),
+        ms=main["both_ms"], plain_ms=plain_ms, library_ms=None,
+        **{k: main[k] for k in ("bound_ms", "bound_by", "bound_ms_by")})
+
+
+def phase_pipeline(device, card: str) -> dict:
+    """P3: both schedules against the plain version at the probe's shape,
+    then ms per call beside F.silu(a @ w) through cuBLAS, and the verdict."""
+    from diffusion_model_tpu_torch.probes import pipeline as pl
+
+    checks = pl.check_on_card(device)
+    a, w = pl.make_inputs(pl.ROWS, pl.K, pl.N, device)
+    plain_ms = cuda_ms(lambda: pl.silu_product_reference(a, w), 3)
+    pl.probe_pipeline_launches = 0
+    timings = pl.measure(device)
+    launches = pl.probe_pipeline_launches
+    log({"phase": "probe_pipeline", "card": card, "checks": checks,
+         "timings": timings, "launches": launches})
+    return probe_kernel(
+        "probe_pipeline", "probe_pipeline.cu",
+        "benchmarks/probe_pipeline.py:66", launches,
+        max_abs_err=max(r["max_abs_err"] for r in checks),
+        ms=timings["pipelined_ms"], plain_ms=plain_ms,
+        library_ms=timings["library_ms"],
+        **{k: timings[k] for k in ("bound_ms", "bound_by", "bound_ms_by")})
+
+
+def phase_kernel_stages(device, card: str) -> dict:
+    """P1: every stage and x-branch variant against its plain version at
+    N = 192 (int32 products bit for bit through the checksum), then ms per
+    layer call of each."""
+    from diffusion_model_tpu_torch.probes import kernel_stages as ks
+
+    table = ks.variants(device)
+    checks = ks.check_on_card(table)
+    plain_ms = {name: cuda_ms(calls["plain"], 3)
+                for name, calls in table.items()}
+    ks.probe_kernel_stages_launches = 0
+    timings = ks.measure(table, reps=20)
+    launches = ks.probe_kernel_stages_launches
+    ms = {r["mode"]: r["ms_per_layer_call"] for r in timings}
+    log({"phase": "probe_kernel_stages", "card": card, "n": ks.N,
+         "checks": checks, "timings": timings, "plain_ms": plain_ms,
+         "launches": launches,
+         "epilogue_share_of_mm_post": 1 - ms["mm"] / ms["mm_post"],
+         "build_share_of_full_serial": 1 - ms["mm_post"] / ms["full_serial"],
+         "int8_over_bf16_x": ms["x8"] / ms["xbf"]})
+    return probe_kernel(
+        "probe_kernel_stages", "probe_kernel_stages.cu",
+        "benchmarks/probe_kernel_stages.py:126", launches,
+        max_abs_err=max(r["max_abs_err"] for r in checks),
+        ms=ms["mm"], plain_ms=plain_ms["mm"], library_ms=None, stages_ms=ms,
+        **table["mm"]["bound"])
+
+
 def main() -> int:
     try:
         import torch
@@ -599,6 +766,12 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from diffusion_model_tpu_torch.ops import _build, egcl_knn, egcl_pair
+    from diffusion_model_tpu_torch.probes import (
+        kernel_stages,
+        matmul_rate,
+        overlap,
+        pipeline,
+    )
     from diffusion_model_tpu_torch.train.checkpoint import (
         load_config_npz,
         load_params_npz,
@@ -607,9 +780,11 @@ def main() -> int:
     device = torch.device("cuda", 0)
     card = card_line()
     t0 = time.perf_counter()
-    _build.build_all([egcl_pair._SOURCE, egcl_knn._SOURCE])
-    egcl_pair.build()
-    egcl_knn.build()
+    modules = (egcl_pair, egcl_knn, matmul_rate, overlap, pipeline,
+               kernel_stages)
+    _build.build_all([m._SOURCE for m in modules])
+    for m in modules:
+        m.build()
     log({"phase": "toolchain", "nvidia_smi": card,
          "torch": torch.__version__, "torch_cuda": torch.version.cuda,
          "nvcc": _build.find_nvcc(), "kernel_build_s":
@@ -628,6 +803,9 @@ def main() -> int:
     knn_launches = phase_generate(cfg.replace(neighbor_k=SERVED_K), params,
                                   graphs, device)
     phase_large_cell(cfg, params, device, card)
+    probes = [phase_matmul_rate(device, card), phase_overlap(device, card),
+              phase_pipeline(device, card),
+              phase_kernel_stages(device, card)]
 
     log({"kernels": [
         {"name": "egcl_pair", "route": "cuda",
@@ -638,6 +816,7 @@ def main() -> int:
          "source": "diffusion_model_tpu_torch/csrc/egcl_knn.cu",
          "replaces": "diffusion_model_tpu/ops/egcl_pallas_sparse.py:177",
          "launches": knn_launches, **knn},
+        *probes,
     ]})
     print(card_line(), flush=True)
     log({"ok": True, "device": {"platform": "gpu",

@@ -11,7 +11,20 @@ import pytest
 import torch
 
 from diffusion_model_tpu_torch.ops import egcl_knn, egcl_pair
-from torch_port_fixtures import edge_args, edge_inputs, knn_args, knn_inputs
+from diffusion_model_tpu_torch.probes import (
+    kernel_stages,
+    matmul_rate,
+    overlap,
+    pipeline,
+)
+from torch_port_fixtures import (
+    edge_args,
+    edge_inputs,
+    knn_args,
+    knn_inputs,
+    stage_args,
+    stage_inputs,
+)
 
 torch.set_num_threads(4)
 
@@ -137,3 +150,106 @@ def test_knn_grad_inputs_refused_on_the_card(cuda_device):
     with pytest.raises(ValueError, match="requires grad"):
         egcl_knn.egcl_knn_edges(*args)
     assert egcl_knn.egcl_knn_launches == before
+
+
+# --- the hardware probes (P1-P4) ---
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["block", "warp"])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("m,n,steps", [(128, 256, 3), (256, 512, 2),
+                                       (512, 1024, 4), (128, 256, 0)])
+def test_chain_kernel_matches_plain(cuda_device, dtype, schedule, m, n,
+                                    steps):
+    a, w = matmul_rate.make_inputs(m, n, dtype, cuda_device, seed=m + n)
+    before = matmul_rate.probe_matmul_rate_launches
+    got = matmul_rate.chain(a, w, steps, schedule)
+    torch.cuda.synchronize()
+    assert matmul_rate.probe_matmul_rate_launches == before + 1
+    want = matmul_rate.chain_reference(a, w, steps)
+    if dtype == torch.int8 or steps == 0:
+        assert torch.equal(got, want)
+    else:
+        assert _rel_l2(got.float(), want.float()) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", overlap.MODES)
+@pytest.mark.parametrize("m,n,steps", [(32, 256, 3), (64, 1024, 2),
+                                       (48, 512, 3)])
+def test_overlap_kernel_matches_plain(cuda_device, mode, m, n, steps):
+    a, w, y = overlap.make_inputs(m, n, cuda_device, seed=n)
+    before = overlap.probe_overlap_launches
+    got_x, got_y = overlap.overlap(a, w, y, steps, mode)
+    torch.cuda.synchronize()
+    assert overlap.probe_overlap_launches == before + 1
+    want_x, want_y = overlap.overlap_reference(a, w, y, steps, mode)
+    assert torch.equal(got_x, want_x)
+    torch.testing.assert_close(got_y, want_y, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", pipeline.SCHEDULES)
+@pytest.mark.parametrize("rows,k,n", [(256, 128, 256), (384, 1024, 128),
+                                      (128 * 140, 64, 128)])
+def test_pipeline_kernel_matches_plain(cuda_device, schedule, rows, k, n):
+    a, w = pipeline.make_inputs(rows, k, n, cuda_device, seed=rows)
+    before = pipeline.probe_pipeline_launches
+    got = pipeline.silu_product(a, w, schedule)
+    torch.cuda.synchronize()
+    assert pipeline.probe_pipeline_launches == before + 1
+    want = pipeline.silu_product_reference(a, w)
+    assert _rel_l2(got.float(), want.float()) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", kernel_stages.MODES)
+@pytest.mark.parametrize("n,f1,n_real", [(20, 256, 17), (64, 512, 64),
+                                         (70, 256, 66)])
+def test_stage_kernel_matches_plain(cuda_device, mode, n, f1, n_real):
+    args = stage_args(stage_inputs(n, n, f1, 256, n_real), cuda_device)
+    before = kernel_stages.probe_kernel_stages_launches
+    got = kernel_stages.edge_stage(mode, *args)
+    torch.cuda.synchronize()
+    assert kernel_stages.probe_kernel_stages_launches == before + 1
+    want = kernel_stages.edge_stage_reference(mode, *args)
+    limit = 1e-5 if mode == "mm" else 1e-2
+    for g, w in zip(got[:2], want[:2]):
+        assert _rel_l2(g, w) <= limit
+    if mode != "full_serial":
+        assert torch.equal(got[2], want[2])      # the int32 products
+    if mode != "mm":
+        pad = args[5][0, :, 0] == 0
+        assert not got[0][0, pad].any() and not got[1][0, pad].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("n,f1", [(20, 256), (65, 512)])
+def test_x_branch_kernel_matches_plain(cuda_device, blocked, dtype, n, f1):
+    q, w, wx3 = kernel_stages.make_x_inputs(dtype, cuda_device, n, f1)
+    before = kernel_stages.probe_kernel_stages_launches
+    if blocked:
+        got = kernel_stages.x_branch_blocked(q, w, wx3)
+        want = kernel_stages.x_branch_blocked_reference(q, w, wx3)
+    else:
+        got = kernel_stages.x_branch(q, w)
+        want = kernel_stages.x_branch_reference(q, w)
+    torch.cuda.synchronize()
+    assert kernel_stages.probe_kernel_stages_launches == before + 1
+    assert _rel_l2(got[0], want[0]) <= 1e-2
+    if dtype == torch.int8:
+        assert torch.equal(got[1], want[1])
+    else:
+        assert _rel_l2(got[1], want[1]) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_probe_kernels_refuse_bad_shapes_on_the_card(cuda_device):
+    a, w = matmul_rate.make_inputs(96, 256, torch.int8, cuda_device)
+    before = matmul_rate.probe_matmul_rate_launches
+    with pytest.raises(ValueError, match="multiples"):
+        matmul_rate.chain(a, w, 1, "warp")
+    assert matmul_rate.probe_matmul_rate_launches == before

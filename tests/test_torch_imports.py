@@ -1,5 +1,6 @@
-"""The port and ``chip_smoke.py`` import without JAX, flax, yaml or the JAX
-package: the machine with the card has none of them."""
+"""The port and ``chip_smoke.py`` import without JAX, flax, yaml, the JAX
+package or the TPU probes under ``benchmarks/``: the machine with the card
+has none of the first four, and the port keeps its own copy of the rest."""
 
 import pkgutil
 import subprocess
@@ -13,7 +14,8 @@ import diffusion_model_tpu_torch
 torch.set_num_threads(4)
 
 REPO = Path(__file__).resolve().parents[1]
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "yaml", "diffusion_model_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "yaml", "diffusion_model_tpu",
+           "benchmarks")
 
 
 def port_modules():
@@ -28,7 +30,10 @@ def test_every_module_is_listed():
                      "diffusion.process", "diffusion.sampler",
                      "nn.compressor", "nn.denoiser", "nn.egnn", "ops.angles",
                      "ops.com", "ops.edges", "ops.egcl_knn", "ops.egcl_pair",
-                     "ops.schedules", "ops._build", "train.checkpoint"):
+                     "ops.schedules", "ops._build", "probes._common",
+                     "probes.kernel_stages", "probes.matmul_rate",
+                     "probes.overlap", "probes.pipeline",
+                     "train.checkpoint"):
         assert f"diffusion_model_tpu_torch.{expected}" in names
 
 

@@ -302,6 +302,57 @@ def knn_args(inputs: dict, device="cpu", dtype=None) -> tuple:
     return tuple(tensor(k) for k in KNN_NAMES)
 
 
+def tpu_probe(name: str):
+    """A fresh copy of the TPU probe ``benchmarks/<name>.py`` (it imports
+    JAX), so a test may set its shape constants without touching another's."""
+    import importlib.util
+
+    _jax()
+    spec = importlib.util.spec_from_file_location(
+        f"tpu_{name}", REPO / "benchmarks" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+STAGE_NAMES = ("am_i", "am_j", "ax_i", "ax_j", "x", "mask", "qm", "qx",
+               "w_dm", "w_dx", "w2m_q", "w2x_q", "wx3", "wa")
+_STAGE_BF16 = ("am_i", "am_j", "ax_i", "ax_j", "w_dm", "w_dx")
+
+
+def stage_inputs(seed=0, n=16, f1=32, fm=16, n_real=None) -> dict:
+    """numpy inputs of the kernel-stages probe (one graph) at the TPU probe's
+    scales; targets from ``n_real`` on are masked."""
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape, scale=0.5):
+        return (rng.normal(size=shape) * scale).astype(np.float32)
+
+    def quant(*shape):
+        return np.clip(rng.normal(size=shape) * 40, -127, 127).astype(np.int8)
+
+    mask = np.ones((1, n, 1), np.float32)
+    mask[0, n if n_real is None else n_real:] = 0.0
+    return {"am_i": normal(1, n, f1), "am_j": normal(1, n, f1),
+            "ax_i": normal(1, n, f1), "ax_j": normal(1, n, f1),
+            "x": normal(1, n, 3, scale=3.0), "mask": mask,
+            "qm": quant(1, n * n, f1), "qx": quant(1, n * n, f1),
+            "w_dm": normal(1, f1), "w_dx": normal(1, f1),
+            "w2m_q": quant(f1, fm), "w2x_q": quant(f1, f1),
+            "wx3": normal(f1, 1, scale=0.05), "wa": normal(fm, 1, scale=0.05)}
+
+
+def stage_args(inputs: dict, device="cpu") -> tuple:
+    """``stage_inputs`` as torch tensors in argument order (projections and
+    w_d in bf16, the rest as drawn)."""
+    import torch
+
+    return tuple(
+        torch.from_numpy(inputs[k]).to(device, torch.bfloat16)
+        if k in _STAGE_BF16 else torch.from_numpy(inputs[k]).to(device)
+        for k in STAGE_NAMES)
+
+
 def main() -> int:
     arrays = build()
     FIXTURE.parent.mkdir(parents=True, exist_ok=True)
