@@ -12,7 +12,8 @@ Phases, each printed as one JSON line:
   2. the pair kernel (K1) against its plain version at flagship width
      (F1=1024, Fm=256) on the inputs the main path gives it (B x N = 80 x 16
      and 1 x 192), float32 variant and bfloat16 variant, padded rows inert,
-     and timed;
+     and timed, with the tile rows the kernel computed (held to its
+     schedule, ``edge_tiles``), the live edges and the rate over them;
   3. the flagship denoiser on the card against the JAX goldens of
      ``tests/fixtures/torch_port/flagship.npz``;
   4. generation through ``api.generate`` from ``artifacts/q_predef_r5.npz``
@@ -23,7 +24,7 @@ Phases, each printed as one JSON line:
   6. the kNN kernel (K2) against its plain version at flagship width
      (H=36), float32 and bfloat16, on the kNN route's inputs: 80 x 16 at
      K=15 (every layer), 2 x 512 and 1 x 2048 amorphous cells at K=32
-     (layer 0); padded targets inert; timed;
+     (layer 0); padded targets inert; timed, rows as in phase 2;
   7. K2 over ``knn_edges(., K=N-1)`` against K1 over the dense pair grid on
      the same layer inputs (80 x 16, every layer): the same edges;
   8. the flagship denoiser over ``knn_edges(., 6)`` against the JAX kNN
@@ -243,6 +244,51 @@ def time_kernel(name: str, args) -> dict:
             "plain_ms": cuda_ms(lambda: plain(*args), 5)}
 
 
+def row_count(name: str, args) -> dict:
+    """Tile rows the kernel computed on these inputs, against the rows its
+    schedule (``edge_tiles``) says the bf16 kernel computes."""
+    import torch
+
+    from diffusion_model_tpu_torch.ops import egcl_knn, egcl_pair
+
+    kernel_table()[name][0](*args)
+    torch.cuda.synchronize()
+    if name == "egcl_pair":
+        got, sched = int(egcl_pair.last_rows), egcl_pair.edge_tiles(args[5])
+    else:
+        got = int(egcl_knn.last_rows)
+        sched = egcl_knn.edge_tiles(args[4], args[5])
+    if args[0].dtype == torch.bfloat16 and got != sched.rows:
+        raise AssertionError(f"{name} computed {got} tile rows, its schedule "
+                             f"says {sched.rows}")
+    return {"rows_computed": got, "rows_per_live_edge":
+            got / max(sched.live_edges, 1)}
+
+
+def host_us(fn, reps: int = 50) -> float:
+    """Host microseconds to enqueue one ``fn()`` (checks, tensor maps and
+    the launch), with the card busy behind it."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    took = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * took / reps
+
+
+def timed(name: str, args, bound: dict) -> dict:
+    """Kernel and plain times, the bound, the row count, the rate over the
+    live edges and the host time of a launch."""
+    kernel = kernel_table()[name][0]
+    rec = time_kernel(name, args) | bound | row_count(name, args)
+    rec["live_tflops"] = rec["flops"] / (rec["kernel_ms"] * 1e9)
+    rec["host_us_per_launch"] = host_us(lambda: kernel(*args))
+    return rec
+
+
 def phase_kernels(cfg, params, fx, cell, device) -> dict:
     # 80 x 16: every layer's inputs; 1 x 192: the headline cell, first layer
     # only: the flagship was trained on graphs of at most 16 atoms, and over
@@ -260,16 +306,16 @@ def phase_kernels(cfg, params, fx, cell, device) -> dict:
                 rec = check_kernel("egcl_pair", calls[layer], dtype_name)
                 rec["layer"] = layer
                 checks.append(rec)
-            timings[f"{name}_{dtype_name}"] = time_kernel("egcl_pair",
-                                                          calls[0])
-            timings[f"{name}_{dtype_name}"].update(pair_bound(calls[0]))
+            timings[f"{name}_{dtype_name}"] = timed(
+                "egcl_pair", calls[0], pair_bound(calls[0]))
     main = timings["80x16_bfloat16"]
     main_err = max(r["max_abs_err"] for r in checks
                    if r["dtype"] == "bfloat16" and r["shape"] == [80, 16])
     log({"phase": "kernel_vs_plain", "checks": checks, "timings": timings})
     return {"max_abs_err": main_err, "ms": main["kernel_ms"],
             "plain_ms": main["plain_ms"], "library_ms": None,
-            **{k: main[k] for k in ("bound_ms", "bound_by", "live_edges")}}
+            **{k: main[k] for k in ("bound_ms", "bound_by", "live_edges",
+                                    "rows_computed", "live_tflops")}}
 
 
 def phase_knn_kernel(cfg, params, fx, device) -> dict:
@@ -295,9 +341,8 @@ def phase_knn_kernel(cfg, params, fx, device) -> dict:
                 rec = check_kernel("egcl_knn", calls[layer], dtype_name)
                 rec["layer"] = layer
                 checks.append(rec)
-            timings[f"{name}_{dtype_name}"] = time_kernel("egcl_knn",
-                                                          calls[0])
-            timings[f"{name}_{dtype_name}"].update(knn_bound(calls[0]))
+            timings[f"{name}_{dtype_name}"] = timed(
+                "egcl_knn", calls[0], knn_bound(calls[0]))
     main = timings["80x16_k15_bfloat16"]
     main_err = max(r["max_abs_err"] for r in checks
                    if r["dtype"] == "bfloat16" and r["shape"] == [80, 16])
@@ -305,7 +350,8 @@ def phase_knn_kernel(cfg, params, fx, device) -> dict:
          "timings": timings})
     return {"max_abs_err": main_err, "ms": main["kernel_ms"],
             "plain_ms": main["plain_ms"], "library_ms": None,
-            **{k: main[k] for k in ("bound_ms", "bound_by", "live_edges")}}
+            **{k: main[k] for k in ("bound_ms", "bound_by", "live_edges",
+                                    "rows_computed", "live_tflops")}}
 
 
 def phase_knn_is_dense(cfg, params, fx, device) -> None:
@@ -619,9 +665,9 @@ def pair_bound(args) -> dict:
     pairs = float((real * (real - 1)).sum())
     f1, fm = args[8].shape                  # w2m
     b, n = args[0].shape[:2]
-    return {"live_edges": pairs, **bound(
-        nbytes(*args) + b * n * (fm + 3) * 4,
-        **{peak_kind(args[0]): pairs * edge_flops(f1, fm)})}
+    flops = pairs * edge_flops(f1, fm)
+    return {"live_edges": pairs, "flops": flops, **bound(
+        nbytes(*args) + b * n * (fm + 3) * 4, **{peak_kind(args[0]): flops})}
 
 
 def knn_bound(args) -> dict:
@@ -632,9 +678,9 @@ def knn_bound(args) -> dict:
     fm = args[10].shape[-1]                 # w2m
     b, n = args[0].shape[:2]
     edges = float(args[5].sum())
-    return {"live_edges": edges, **bound(
-        nbytes(*args) + b * n * (fm + 3) * 4,
-        **{peak_kind(args[0]): edges * edge_flops(f1, fm, h)})}
+    flops = edges * edge_flops(f1, fm, h)
+    return {"live_edges": edges, "flops": flops, **bound(
+        nbytes(*args) + b * n * (fm + 3) * 4, **{peak_kind(args[0]): flops})}
 
 
 def probe_kernel(name: str, source: str, replaces: str, launches: int,

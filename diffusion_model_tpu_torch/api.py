@@ -64,7 +64,8 @@ def generate(cfg: Config, params_or_model: Union[dict, DiffusionDenoiser],
       generator: source of the sampling noise; by default a generator on
         ``device`` seeded with ``cfg.seed``.
       device: where to sample; by default the model's, else the
-        generator's.
+        generator's, else the card (``cuda``): without one, CUDA's own
+        error is raised, and the CPU is used only when asked for.
       noise: optional replacement source of standard-normal draws (see
         ``diffusion.sampler``).
       edge_fn, knn_edge_fn: the edge functions of a model built from
@@ -86,9 +87,7 @@ def generate(cfg: Config, params_or_model: Union[dict, DiffusionDenoiser],
         device = next(model.parameters()).device if device is None else device
     else:
         if device is None:
-            if generator is None:
-                raise ValueError("generate needs a device or a generator")
-            device = generator.device
+            device = "cuda" if generator is None else generator.device
         model = denoiser_from_params(cfg, params_or_model, device, edge_fn,
                                      knn_edge_fn)
     device = torch.device(device)

@@ -13,12 +13,16 @@ j = idx[b, i, k] and edge weight em = edge_mask[b, i, k]::
     x_out_i = x_i + sum_k (x_i - x_j) * s / (|x_i - x_j| + 1) * em
 
 The kernel (``csrc/egcl_knn.cu``) shares the dense kernel's edge tile and
-epilogue (``csrc/egcl_edge_tile.cuh``): one block owns whole targets with
-all their K slots, so the sum over the slots is taken in the block in a
-fixed order with no atomics; it gathers h_j and x_j by ``idx`` into shared
-memory and computes the j-side first layer ``h_j @ W_j`` per edge, so only
-the H-wide node rows cross device memory. A slot whose index lies outside
-``[0, N)`` is treated as masked: the kernel never reads outside the graph.
+epilogue (``csrc/egcl_edge_tile.cuh``). In bf16 a block owns a run of
+consecutive targets and computes their live slots only (``edge_tiles``
+states the schedule), in 64-row tiles; it gathers h_j and x_j by ``idx``
+and runs the j-side first layer ``h_j @ W_j`` per edge on the tensor cores,
+so only the H-wide node rows cross device memory; the sums over the slots
+are taken in the block in a fixed order with no atomics. A slot whose index
+lies outside ``[0, N)`` is treated as masked: the kernel never reads outside
+the graph. A float32 variant walks the padded slots with plain FMAs.
+``last_rows`` holds the tile rows the last launch computed (an int32 on the
+card).
 
 On CPU tensors ``egcl_knn_edges`` runs ``egcl_knn_edges_reference``; on CUDA
 tensors it launches the kernel or raises. Serving needs no gradient, so an
@@ -30,15 +34,22 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from diffusion_model_tpu_torch.ops import _tiles
 
 # Launches of the CUDA kernel in this process; only egcl_knn_edges adds to
 # it, right after a launch was accepted.
 egcl_knn_launches = 0
+# Tile rows the last launch computed: one int32 on the card, which every
+# block of the kernel adds its rows to.
+last_rows = None
 
 _SOURCE = "egcl_knn.cu"
 MAX_H = 48   # node feature width the kernel takes (csrc/egcl_knn.cu kMaxH)
+MAX_F1 = 1024   # first-layer width of the bf16 kernel (csrc kMaxF1)
 
 
 def gather_nodes(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -75,6 +86,20 @@ def egcl_knn_edges_reference(am_i, ax_i, h, x, idx, edge_mask, wm_j, wx_j,
     return m_sum, x + upd.sum(dim=2)
 
 
+def edge_tiles(idx, edge_mask) -> _tiles.EdgeTiles:
+    """The bf16 kernel's schedule over the kNN lists ``idx [B, N, K]`` and
+    ``edge_mask [B, N, K]``: the live slots (mask nonzero, 0 <= idx < N) in
+    (target, slot) order, wherever they sit in a row, blocks of consecutive
+    targets, and the tile rows the kernel computes."""
+    idx = np.asarray(torch.as_tensor(idx).detach().cpu()).astype(np.int64)
+    em = np.asarray(torch.as_tensor(edge_mask).detach().cpu())
+    b, n, k = idx.shape
+    live = (em != 0) & (idx >= 0) & (idx < n)
+    source = np.where(live, np.arange(b)[:, None, None] * n + idx, -1)
+    return _tiles.schedule(live.reshape(b * n, k), source.reshape(b * n, k),
+                           k)
+
+
 _NAMES = ("am_i", "ax_i", "h", "x", "idx", "edge_mask", "wm_j", "wx_j",
           "w_dm", "w_dx", "w2m", "b2m", "wa", "ba", "w2x", "b2x", "wx3",
           "bx3")
@@ -105,6 +130,10 @@ def _check(tensors: dict) -> torch.dtype:
         raise ValueError(
             f"kernel takes F1 and Fm in multiples of 64 with Fm <= 256; "
             f"got F1={f1}, Fm={fm}")
+    if cdt == torch.bfloat16 and f1 > MAX_F1:
+        raise ValueError(
+            f"the bf16 kernel holds a 64-row tile of F1 <= {MAX_F1} columns "
+            f"in shared memory; got F1={f1}")
     if not 1 <= hdim <= MAX_H:
         raise ValueError(
             f"kernel takes node features of width 1..{MAX_H}; got H={hdim}")
@@ -134,7 +163,7 @@ def _library() -> ctypes.CDLL:
 
     lib = _build.load(_SOURCE)
     lib.egcl_knn_forward.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 20 + [ctypes.c_int] * 6
+        [ctypes.c_int] + [ctypes.c_void_p] * 21 + [ctypes.c_int] * 6
         + [ctypes.c_void_p])
     lib.egcl_knn_forward.restype = ctypes.c_int
     lib.egcl_knn_error_string.argtypes = [ctypes.c_int]
@@ -166,7 +195,7 @@ def egcl_knn_edges(am_i, ax_i, h, x, idx, edge_mask, wm_j, wx_j, w_dm, w_dx,
     Returns:
       (m_sum ``[B, N, Fm]`` float32, x_out ``[B, N, 3]`` float32).
     """
-    global egcl_knn_launches
+    global egcl_knn_launches, last_rows
     args = (am_i, ax_i, h, x, idx, edge_mask, wm_j, wx_j, w_dm, w_dx, w2m,
             b2m, wa, ba, w2x, b2x, wx3, bx3)
     device = am_i.device
@@ -179,16 +208,18 @@ def egcl_knn_edges(am_i, ax_i, h, x, idx, edge_mask, wm_j, wx_j, w_dm, w_dx,
     hdim, k, fm = h.shape[-1], idx.shape[-1], w2m.shape[-1]
     m_sum = torch.empty((b, n, fm), dtype=torch.float32, device=device)
     x_out = torch.empty((b, n, 3), dtype=torch.float32, device=device)
+    rows = torch.zeros(1, dtype=torch.int32, device=device)
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.egcl_knn_forward(
             int(cdt == torch.bfloat16), *(t.data_ptr() for t in args),
-            m_sum.data_ptr(), x_out.data_ptr(), b, n, hdim, k, f1, fm,
-            stream)
+            m_sum.data_ptr(), x_out.data_ptr(), rows.data_ptr(), b, n, hdim,
+            k, f1, fm, stream)
     if rc != 0:
         raise RuntimeError(
             f"egcl_knn kernel launch failed: "
             f"{lib.egcl_knn_error_string(rc).decode()} (cudaError {rc})")
     egcl_knn_launches += 1
+    last_rows = rows
     return m_sum, x_out

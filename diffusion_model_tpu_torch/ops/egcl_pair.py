@@ -13,14 +13,16 @@ with i != j (pair mask pm)::
     x_out_i = x_i + sum_j (x_i - x_j) * s / (|x_i - x_j| + 1) * pm
 
 The kernel (``csrc/egcl_pair.cu``) is bound by tensor-core FLOPs: 2.62
-MFLOP per edge at F1=1024, Fm=256, against at most 8 KB of node input per
-edge (four bf16 projection rows), above the card's FLOP-per-byte ridge
-even with no reuse. One block owns a few rows i of one graph and loops over j
-itself, so the j-sums need no atomics and are deterministic; both
-second-layer products run on the tensor cores (bf16 in, f32 accumulate) from
-a tile of silu(pre) built once in shared memory; bias, SiLU, the gate and
-the width-1 heads fold into the epilogue, so no ``[edges, F1]`` tensor
-reaches device memory. A float32 variant runs the products as plain FMAs.
+MFLOP per live pair at F1=1024, Fm=256, against at most 8 KB of node input
+per edge (four bf16 projection rows), above the card's FLOP-per-byte ridge
+even with no reuse. In bf16 a block owns a run of consecutive targets and
+computes their live pairs only (``edge_tiles`` states the schedule), in
+64-row tiles of silu(pre) built 8 bf16 at a time; both second-layer products
+run as wgmma with W streamed by TMA, and bias, SiLU, the gate and the
+width-1 heads fold into the epilogue, so no ``[edges, F1]`` tensor reaches
+device memory and the j-sums need no atomics. A float32 variant walks the
+padded grid with plain FMAs. ``last_rows`` holds the tile rows the last
+launch computed (an int32 on the card).
 
 On CPU tensors ``egcl_pair_edges`` runs ``egcl_pair_edges_reference``; on
 CUDA tensors it launches the kernel or raises. Serving needs no gradient, so
@@ -32,14 +34,21 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from diffusion_model_tpu_torch.ops import _tiles
 
 # Launches of the CUDA kernel in this process; only egcl_pair_edges adds to
 # it, right after a launch was accepted.
 egcl_pair_launches = 0
+# Tile rows the last launch computed: one int32 on the card, which every
+# block of the kernel adds its rows to.
+last_rows = None
 
 _SOURCE = "egcl_pair.cu"
+MAX_F1 = 1024   # first-layer width of the bf16 kernel (csrc kMaxF1)
 
 
 def egcl_pair_edges_reference(am_i, am_j, ax_i, ax_j, x, mask, w_dm, w_dx,
@@ -69,6 +78,21 @@ def egcl_pair_edges_reference(am_i, am_j, ax_i, ax_j, x, mask, w_dm, w_dx,
     return m_sum, x + upd.sum(dim=2)
 
 
+def edge_tiles(mask) -> _tiles.EdgeTiles:
+    """The bf16 kernel's schedule over the pair grid of ``mask [B, N, 1]``
+    (or ``[B, N]``): the live pairs (i, j), i != j, both masks nonzero, in
+    (target, j) order, blocks of consecutive targets, and the tile rows the
+    kernel computes."""
+    m = np.asarray(torch.as_tensor(mask).detach().cpu()).reshape(
+        mask.shape[0], mask.shape[1]) != 0
+    b, n = m.shape
+    live = m[:, :, None] & m[:, None, :] & ~np.eye(n, dtype=bool)
+    source = np.broadcast_to(
+        (np.arange(b)[:, None, None] * n + np.arange(n)), (b, n, n))
+    return _tiles.schedule(live.reshape(b * n, n),
+                           source.reshape(b * n, n), n - 1)
+
+
 _NAMES = ("am_i", "am_j", "ax_i", "ax_j", "x", "mask", "w_dm", "w_dx", "w2m",
           "b2m", "wa", "ba", "w2x", "b2x", "wx3", "bx3")
 _COMPUTE = ("am_i", "am_j", "ax_i", "ax_j", "w_dm", "w_dx", "w2m", "w2x")
@@ -94,6 +118,10 @@ def _check(tensors: dict) -> torch.dtype:
         raise ValueError(
             f"kernel takes F1 and Fm in multiples of 64 with Fm <= 256; "
             f"got F1={f1}, Fm={fm}")
+    if cdt == torch.bfloat16 and f1 > MAX_F1:
+        raise ValueError(
+            f"the bf16 kernel holds a 64-row tile of F1 <= {MAX_F1} columns "
+            f"in shared memory; got F1={f1}")
     for name, want in _expected_shapes(b, n, f1, fm).items():
         t = tensors[name]
         dtype = cdt if name in _COMPUTE else torch.float32
@@ -119,7 +147,7 @@ def _library() -> ctypes.CDLL:
 
     lib = _build.load(_SOURCE)
     lib.egcl_pair_forward.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 18 + [ctypes.c_int] * 4
+        [ctypes.c_int] + [ctypes.c_void_p] * 19 + [ctypes.c_int] * 4
         + [ctypes.c_void_p])
     lib.egcl_pair_forward.restype = ctypes.c_int
     lib.egcl_pair_error_string.argtypes = [ctypes.c_int]
@@ -148,7 +176,7 @@ def egcl_pair_edges(am_i, am_j, ax_i, ax_j, x, mask, w_dm, w_dx, w2m, b2m,
     Returns:
       (m_sum ``[B, N, Fm]`` float32, x_out ``[B, N, 3]`` float32).
     """
-    global egcl_pair_launches
+    global egcl_pair_launches, last_rows
     args = (am_i, am_j, ax_i, ax_j, x, mask, w_dm, w_dx, w2m, b2m, wa, ba,
             w2x, b2x, wx3, bx3)
     device = am_i.device
@@ -162,15 +190,18 @@ def egcl_pair_edges(am_i, am_j, ax_i, ax_j, x, mask, w_dm, w_dx, w2m, b2m,
     fm = w2m.shape[-1]
     m_sum = torch.empty((b, n, fm), dtype=torch.float32, device=device)
     x_out = torch.empty((b, n, 3), dtype=torch.float32, device=device)
+    rows = torch.zeros(1, dtype=torch.int32, device=device)
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.egcl_pair_forward(
             int(cdt == torch.bfloat16), *(t.data_ptr() for t in args),
-            m_sum.data_ptr(), x_out.data_ptr(), b, n, f1, fm, stream)
+            m_sum.data_ptr(), x_out.data_ptr(), rows.data_ptr(), b, n, f1,
+            fm, stream)
     if rc != 0:
         raise RuntimeError(
             f"egcl_pair kernel launch failed: "
             f"{lib.egcl_pair_error_string(rc).decode()} (cudaError {rc})")
     egcl_pair_launches += 1
+    last_rows = rows
     return m_sum, x_out

@@ -89,3 +89,26 @@ def test_unported_options_raise():
         api.generate(cfg, params, [], device="cpu", size_predictor=object())
     with pytest.raises(NotImplementedError, match="trajectory"):
         api.generate(cfg, params, [], device="cpu", return_trajectory=True)
+
+
+def test_generate_samples_on_the_card_by_default(monkeypatch):
+    jcfg, params = flagship()
+    cfg = from_dict(jcfg.to_dict())
+    graphs = flagship_conditions(jcfg)[:1]
+    built = []
+
+    def record(cfg, params, device, *args):
+        built.append(torch.device(device))
+        raise LookupError("recorded")
+
+    with monkeypatch.context() as m:
+        m.setattr(api, "denoiser_from_params", record)
+        with pytest.raises(LookupError, match="recorded"):
+            api.generate(cfg, params, graphs, gen_num_per_spectrum=1,
+                         batch_size=1)
+    assert built == [torch.device("cuda")]
+    if not torch.cuda.is_available():
+        # no card here: CUDA's own error, never a silent run on the CPU
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            api.generate(cfg, params, graphs, gen_num_per_spectrum=1,
+                         batch_size=1)

@@ -7,6 +7,7 @@ JAX, hence ``--noconftest`` there):
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -65,6 +66,38 @@ def test_kernel_matches_plain(cuda_device, dtype, b, n, f1, fm):
     pad = args[5][..., 0] == 0
     assert torch.equal(got_m[pad], torch.zeros_like(got_m[pad]))
     assert torch.equal(got_x[pad], args[4][pad])
+    if dtype == torch.bfloat16:
+        assert int(egcl_pair.last_rows) == egcl_pair.edge_tiles(args[5]).rows
+
+
+def _scatter_mask(inputs, seed):
+    """Real atoms spread over the graph instead of forming a prefix."""
+    rng = np.random.default_rng(seed)
+    for g in range(inputs["mask"].shape[0]):
+        inputs["mask"][g] = inputs["mask"][g][rng.permutation(
+            inputs["mask"].shape[1])]
+    return inputs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,n_real", [(6, 16, (0, 1, 2, 16, 5, 0)),
+                                        (3, 70, (70, 1, 33)),
+                                        (2, 192, (192, 100))])
+def test_bf16_kernel_computes_live_pairs_only(cuda_device, b, n, n_real):
+    inputs = _scatter_mask(edge_inputs(15, b=b, n=n, f1=256, fm=128,
+                                       n_real=n_real), 15)
+    args = edge_args(inputs, cuda_device, torch.bfloat16)
+    got_m, got_x = egcl_pair.egcl_pair_edges(*args)
+    torch.cuda.synchronize()
+    want_m, want_x = egcl_pair.egcl_pair_edges_reference(*args)
+    assert _rel_l2(got_m, want_m) <= 1e-2
+    assert _rel_l2(got_x - args[4], want_x - args[4]) <= 1e-2
+    sched = egcl_pair.edge_tiles(args[5])
+    assert int(egcl_pair.last_rows) == sched.rows
+    assert sched.rows <= sched.live_edges + 63 * len(sched.blocks)
+    lonely = args[5][..., 0] == 0
+    assert torch.equal(got_m[lonely], torch.zeros_like(got_m[lonely]))
+    assert torch.equal(got_x[lonely], args[4][lonely])
 
 
 @pytest.mark.cuda
@@ -110,6 +143,35 @@ def test_knn_kernel_matches_plain(cuda_device, dtype, b, n, k):
         assert _rel_l2(got_x - args[3], want_x - args[3]) <= 1e-2
     pad = args[5].sum(dim=-1) == 0           # targets with no live slot
     assert bool(pad.any())
+    assert torch.equal(got_m[pad], torch.zeros_like(got_m[pad]))
+    assert torch.equal(got_x[pad], args[3][pad])
+    if dtype == torch.bfloat16:
+        assert int(egcl_knn.last_rows) == egcl_knn.edge_tiles(
+            args[4], args[5]).rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,k,f1,fm", [(80, 16, 15, 1024, 256),
+                                         (2, 90, 70, 320, 64),
+                                         (3, 40, 33, 256, 192)])
+def test_bf16_knn_kernel_computes_live_slots_only(cuda_device, b, n, k, f1,
+                                                  fm):
+    inputs = knn_inputs(16, b=b, n=n, k=k, hdim=36, f1=f1, fm=fm,
+                        n_real=[n - 1 - (g % 7) for g in range(b)])
+    rng = np.random.default_rng(16)
+    for name in ("idx", "edge_mask"):       # live slots no longer a prefix
+        inputs[name] = inputs[name][..., rng.permutation(k)].copy()
+    inputs["edge_mask"][0, 1] = 0.0          # a real target with no slot
+    args = knn_args(inputs, cuda_device, torch.bfloat16)
+    got_m, got_x = egcl_knn.egcl_knn_edges(*args)
+    torch.cuda.synchronize()
+    want_m, want_x = egcl_knn.egcl_knn_edges_reference(*args)
+    assert _rel_l2(got_m, want_m) <= 1e-2
+    assert _rel_l2(got_x - args[3], want_x - args[3]) <= 1e-2
+    sched = egcl_knn.edge_tiles(args[4], args[5])
+    assert int(egcl_knn.last_rows) == sched.rows
+    assert sched.rows <= sched.live_edges + 63 * len(sched.blocks)
+    pad = args[5].sum(dim=-1) == 0
     assert torch.equal(got_m[pad], torch.zeros_like(got_m[pad]))
     assert torch.equal(got_x[pad], args[3][pad])
 
