@@ -41,10 +41,12 @@ Phases, each printed as one JSON line:
      held against its plain version at the TPU probe's shapes and then
      driven as its ``main()`` drives it (launches counted over that run
      only), with the cuBLAS yardstick where there is one: P2 the chained
-     int8/bf16 products (``probes.matmul_rate``), P4 tensor-core and
-     CUDA-core work in one loop (``probes.overlap``), P3 SiLU(a @ w) with and
-     without an overlapped epilogue (``probes.pipeline``), P1 the int8 EGCL
-     edge tile in stages at N=192 (``probes.kernel_stages``).
+     int8/bf16 products (``probes.matmul_rate``: cluster-wide chains on
+     wgmma, with the cluster and slice each launch used, its time over the
+     cuBLAS chain's and over the bound, and a link's phases), P4 tensor-core
+     and CUDA-core work in one loop (``probes.overlap``), P3 SiLU(a @ w)
+     with and without an overlapped epilogue (``probes.pipeline``), P1 the
+     int8 EGCL edge tile in stages at N=192 (``probes.kernel_stages``).
 
 Any failed check raises, and the script exits non-zero without its result
 line. The last lines are the kernel table (with each kernel's bound: its
@@ -693,8 +695,11 @@ def probe_kernel(name: str, source: str, replaces: str, launches: int,
 
 
 def phase_matmul_rate(device, card: str) -> dict:
-    """P2: the chain kernel against its plain version at M = 512 (int8 bit
-    for bit), then the probe's timings at M = 512 and a card-filling M."""
+    """P2: the chain kernel against its plain version at M = 512 and at the
+    card-filling M, so at every cluster shape the timings run (int8 bit for
+    bit), then the probe's timings at both M, each with the cluster and
+    column slice its launch used and its time over the eager cuBLAS chain's
+    and over the bound, and where a link's cycles go."""
     import torch
 
     from diffusion_model_tpu_torch.probes import matmul_rate as mr
@@ -707,10 +712,29 @@ def phase_matmul_rate(device, card: str) -> dict:
             lambda: mr.chain_reference(a, w), 3)
     mr.probe_matmul_rate_launches = 0
     timings = mr.measure(device)
+    phases = mr.measure_phases(device)
     launches = mr.probe_matmul_rate_launches
     log({"phase": "probe_matmul_rate", "card": card, "checks": checks,
-         "timings": timings, "plain_ms_m512": plain_ms, "launches": launches,
-         "library": "torch.matmul / torch._int_mm chains (cuBLAS)"})
+         "timings": timings, "link_phases": phases,
+         "plain_ms_m512": plain_ms, "launches": launches,
+         "library": "torch.matmul / torch._int_mm chains (cuBLAS), eager "
+                    "(library_*) and replayed from a CUDA graph "
+                    "(library_graph_*)"})
+    held = {(f"{r['schedule']}_{'int8' if r['dtype'] == 'int8' else 'bf16'}",
+             r["m"], r["cluster"], r["ns"]) for r in checks}
+    for r in timings:
+        if "plan" in r and (r["variant"], r["m"], r["cluster"],
+                            r["ns"]) not in held:
+            raise AssertionError(
+                f"{r['variant']} at M = {r['m']} was timed with a cluster "
+                f"of {r['cluster']} and slices of {r['ns']} columns, which "
+                f"no check held against the plain version")
+    for r in timings:
+        if r["shape"] == "tpu" and "over_library" in r \
+                and r["over_library"] > 1:
+            raise AssertionError(
+                f"{r['variant']} at M = {r['m']} takes {r['ms']:.3f} ms, "
+                f"{r['over_library']:.2f}x the eager cuBLAS chain")
     main = next(r for r in timings
                 if (r["variant"], r["shape"]) == ("block_int8", "tpu"))
     library = next(r for r in timings

@@ -48,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_ptx.cuh"
+
 namespace egcl {
 
 using bf16 = __nv_bfloat16;
@@ -359,78 +361,15 @@ struct HopperLayout {
   }
 };
 
-// --- PTX: mbarriers, TMA, wgmma ---
+// --- PTX: mbarriers, TMA, wgmma (hopper_ptx.cuh) ---
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-// Waits for the phase of parity `parity` to complete. A wait that never ends
-// (a schedule that producer and consumers disagree on) traps, so the launch
-// fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  uint32_t tries = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (++tries == (1u << 26)) __trap();
-  } while (!done);
-}
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int col, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
-      : "memory");
-}
-// Generic-proxy writes of shared memory (the build) made visible to the
-// async proxy (wgmma); each writing thread fences before the barrier.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
-}
+using namespace hopper;
+
 // Barrier of the two consumer warpgroups only.
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, 256;" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving accumulator registers across the
-// asynchronous products.
-__device__ __forceinline__ void fence_regs(float* d, int n) {
-#pragma unroll
-  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
-// Shared-memory matrix descriptor, 128-byte swizzle (layout type 1).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
-         (uint64_t(sbo >> 4) << 32) | (1ull << 62);
-}
 // A operand (K-major): columns k0 .. k0+15 of a tile stored as 64-column
 // K-blocks of kKBlock bytes, rows 128 bytes apart, 8-row groups 1024 apart.
 __device__ __forceinline__ uint64_t a_desc(uint32_t a, int k0) {
@@ -482,49 +421,11 @@ __device__ __forceinline__ void wgmma_n128(float* d, uint64_t da,
 
 // --- host: tensor maps ---
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, reached through the runtime (no
-// link against libcuda).
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // Map of a row-major [rows, cols] bf16 matrix in boxes of box_rows x 64
 // with the 128-byte swizzle; rows past the end of the matrix load as zero.
 inline int encode_weight(CUtensorMap* map, const void* w, int rows, int cols,
                          int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return int(cudaErrorSymbolNotFound);
-  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
-  const cuuint64_t strides[1] = {cuuint64_t(cols) * 2};
-  const cuuint32_t box[2] = {64, cuuint32_t(box_rows)};
-  const cuuint32_t step[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                        const_cast<void*>(w), dims, strides, box, step,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : int(cudaErrorInvalidValue);
+  return encode_kmajor(map, w, rows, cols, 2, box_rows);
 }
 
 // --- device: the consumers' pieces ---
@@ -994,7 +895,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       mbar_init(full + s * 8, 1);
       mbar_init(empty + s * 8, 4);  // the warps of one warpgroup
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    fence_mbarrier_init();
     off[0] = 0;
     mt.ctgt[0] = -1;
   }

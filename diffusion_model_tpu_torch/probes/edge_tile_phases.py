@@ -47,6 +47,7 @@ from diffusion_model_tpu_torch.probes._common import (
 PHASES = ("meta", "build_m", "message", "build_x", "coord_passes",
           "coord_sums", "products")
 HEADER = "egcl_edge_tile.cuh"
+SHARED = "hopper_ptx.cuh"        # what HEADER includes; copied as it is
 _MARK = ("if (blockIdx.x == 0 && threadIdx.x == 0) {{ const long long now = "
          "clock64(); egcl_phase_cycles[{0}] += now - mark; mark = now; }}")
 _BUILD_M = ("    build_rows<Op::kJside>(A, p.am, p.bm, p.w_dm, mt, node0, "
@@ -105,7 +106,7 @@ def instrumented_sources(dest: Path) -> list:
     from diffusion_model_tpu_torch.ops import _build
 
     dest.mkdir(parents=True, exist_ok=True)
-    for name in (HEADER, *SOURCES):
+    for name in (HEADER, SHARED, *SOURCES):
         shutil.copy(_build.CSRC / name, dest / name)
     text = (dest / HEADER).read_text()
     for old, new in EDITS:

@@ -220,8 +220,11 @@ def test_knn_grad_inputs_refused_on_the_card(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("schedule", ["block", "warp"])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
-@pytest.mark.parametrize("m,n,steps", [(128, 256, 3), (256, 512, 2),
-                                       (512, 1024, 4), (128, 256, 0)])
+@pytest.mark.parametrize("m,n,steps", [
+    (128, 256, 3), (256, 512, 2), (512, 1024, 4), (128, 256, 0),
+    (100, 512, 3),      # rows that do not fill the last chain of 64
+    (200, 1024, 5),     # four chains: an odd half-cluster for "warp"
+])
 def test_chain_kernel_matches_plain(cuda_device, dtype, schedule, m, n,
                                     steps):
     a, w = matmul_rate.make_inputs(m, n, dtype, cuda_device, seed=m + n)
@@ -234,6 +237,87 @@ def test_chain_kernel_matches_plain(cuda_device, dtype, schedule, m, n,
         assert torch.equal(got, want)
     else:
         assert _rel_l2(got.float(), want.float()) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["block", "warp"])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("m,n,max_cluster", [
+    (512, 1024, 16), (512, 1024, 8), (512, 512, 4),
+    (128, 256, 16),                 # a narrow N: a smaller cluster
+    (100, 512, 16), (4096, 1024, 16), (64, 256, 2),
+])
+def test_chain_kernel_uses_the_plan(cuda_device, dtype, schedule, m, n,
+                                    max_cluster):
+    a, w = matmul_rate.make_inputs(m, n, dtype, cuda_device, seed=1)
+    want = matmul_rate.card_plan(m, n, dtype, schedule, max_cluster)
+    got, used = matmul_rate._launch(a, w, 2, schedule, max_cluster)
+    torch.cuda.synchronize()
+    assert {k: used[k] for k in matmul_rate.PLAN_KEYS} == want
+    assert used["chains"] * used["cs"] <= max_cluster
+    assert used["active_clusters"] >= 1
+    if n == 256:
+        assert want["cs"] < matmul_rate.card_plan(m, 1024, dtype,
+                                                  schedule)["cs"]
+    ref = matmul_rate.chain_reference(a, w, 2)
+    if dtype == torch.int8:
+        assert torch.equal(got, ref)
+    else:
+        assert _rel_l2(got.float(), ref.float()) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_chain_refuses_a_cluster_the_plan_cannot_cut(cuda_device):
+    a, w = matmul_rate.make_inputs(64, 1024, torch.bfloat16, cuda_device)
+    before = matmul_rate.probe_matmul_rate_launches
+    with pytest.raises(ValueError, match="no cluster"):
+        matmul_rate.chain(a, w, 1, "warp", max_cluster=2)
+    assert matmul_rate.probe_matmul_rate_launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["block", "warp"])
+def test_chain_phases_add_up(cuda_device, schedule):
+    a, w = matmul_rate.make_inputs(512, 1024, torch.int8, cuda_device)
+    rec = matmul_rate.chain_phases(a, w, 8, schedule)
+    per_link = rec["cycles_per_link"]
+    assert all(v >= 0 for v in per_link.values())
+    assert per_link["products"] > 0
+    assert (per_link["ring_wait"] + per_link["x_wait"]
+            + per_link["mma_wait"]) <= per_link["products"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("m,max_stages", [(512, 2), (512, 4), (4096, 2)])
+def test_chain_with_a_capped_ring_matches_plain(cuda_device, dtype, m,
+                                                max_stages):
+    a, w = matmul_rate.make_inputs(m, 1024, dtype, cuda_device, seed=2)
+    got, used = matmul_rate._launch(a, w, 3, "block",
+                                    max_stages=max_stages)
+    torch.cuda.synchronize()
+    assert (used["stages"], used["resident"]) == (max_stages, 0)
+    want = matmul_rate.chain_reference(a, w, 3)
+    if dtype == torch.int8:
+        assert torch.equal(got, want)
+    else:
+        assert _rel_l2(got.float(), want.float()) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["block", "warp"])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("m", [512, 4096])
+def test_the_clocked_kernel_computes_the_same_chain(cuda_device, dtype,
+                                                    schedule, m):
+    a, w = matmul_rate.make_inputs(m, 1024, dtype, cuda_device, seed=3)
+    cycles = torch.zeros(len(matmul_rate.PHASES) + 1, dtype=torch.int64,
+                         device=cuda_device)
+    clocked, _ = matmul_rate._launch(a, w, 4, schedule, phases=cycles)
+    plain = matmul_rate.chain(a, w, 4, schedule)
+    torch.cuda.synchronize()
+    assert torch.equal(clocked, plain)
+    assert int(cycles[-1]) == 4 and int(cycles[0]) > 0
 
 
 @pytest.mark.cuda
@@ -310,7 +394,7 @@ def test_x_branch_kernel_matches_plain(cuda_device, blocked, dtype, n, f1):
 
 @pytest.mark.cuda
 def test_probe_kernels_refuse_bad_shapes_on_the_card(cuda_device):
-    a, w = matmul_rate.make_inputs(96, 256, torch.int8, cuda_device)
+    a, w = matmul_rate.make_inputs(96, 128, torch.int8, cuda_device)
     before = matmul_rate.probe_matmul_rate_launches
     with pytest.raises(ValueError, match="multiples"):
         matmul_rate.chain(a, w, 1, "warp")

@@ -15,6 +15,7 @@ def test_every_mark_applies_once(tmp_path):
     paths = etp.instrumented_sources(tmp_path)
     assert [p.name for p in paths] == list(etp.SOURCES)
     header = (tmp_path / etp.HEADER).read_text()
+    assert (tmp_path / etp.SHARED).is_file()     # the header it includes
     for i in range(len(etp.PHASES)):
         assert f"egcl_phase_cycles[{i}]" in header
     for p in paths:
