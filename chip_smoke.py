@@ -8,7 +8,10 @@ Phases, each printed as one JSON line:
 
   1. toolchain: the card (``nvidia-smi``), CUDA, nvcc, and the build of the
      six kernels from ``diffusion_model_tpu_torch/csrc/`` (both EGCL kernels
-     and the four probes; one nvcc each, started together);
+     and the four probes; one nvcc each, started together), with the
+     tensor-core instructions of each library's SASS (``cuobjdump``): K1,
+     K2, P2, P3 and P4 on warpgroup MMA (HGMMA / IGMMA) and none on HMMA /
+     IMMA;
   2. the pair kernel (K1) against its plain version at flagship width
      (F1=1024, Fm=256) on the inputs the main path gives it (B x N = 80 x 16
      and 1 x 192), float32 variant and bfloat16 variant, padded rows inert,
@@ -30,13 +33,23 @@ Phases, each printed as one JSON line:
   8. the flagship denoiser over ``knn_edges(., 6)`` against the JAX kNN
      goldens of the fixture file;
   9. generation as in phase 4 with ``neighbor_k=15``: every EGCL through K2
-     and none through K1;
+     and none through K1 (phases 4, 5, 9 and 10 never leave their kernel:
+     ``plain_edge_calls`` stays 0, and K1 and K2 launch 10010 times each in
+     the served runs);
  10. the large cell, speed only: the 512-atom model class's flags
      (``neighbor_k=32``, ``virtual_node``, ``h_residual``) at full width on
      ``amorphous_cell(seed=0, num_atoms=2048)``, B=1, with the flagship's
      EGCL weights and seeded virtual-node weights: seconds per structure at
      1000 and 250 strided steps through K2, 250 through the plain version,
      and ms per denoiser call of both routes at 2 x 512;
+ 10b. the plain route: a model at ``configs/tiny.yaml``'s widths (dense)
+     and a kNN model with an uncompressed spectrum (node width 204), whose
+     widths no kernel takes (``nn.egnn.edge_route``), run a few denoiser
+     calls on the card through the plain route in chunks, held against the
+     same calls on the CPU (float32, rtol 2e-4 / atol 2e-5 of the output
+     scale), with no kernel launched; and the kernels a flagship denoiser
+     call launches, counted by ``torch.profiler`` on its first call (which
+     casts the weights to bf16) and on the next (which finds them cast);
  11-14. the hardware probes ported from ``benchmarks/probe_*.py``, each
      held against its plain version at the TPU probe's shapes and then
      driven as its ``main()`` drives it (launches counted over that run
@@ -44,8 +57,12 @@ Phases, each printed as one JSON line:
      int8/bf16 products (``probes.matmul_rate``: cluster-wide chains on
      wgmma, with the cluster and slice each launch used, its time over the
      cuBLAS chain's and over the bound, and a link's phases), P4 tensor-core
-     and CUDA-core work in one loop (``probes.overlap``), P3 SiLU(a @ w)
-     with and without an overlapped epilogue (``probes.pipeline``), P1 the
+     and SFU work at once on the same SMs (``probes.overlap``: P2's int8
+     chain with a y warpgroup; its mxu mode bit for bit P2's block chain,
+     its times beside that chain's and beside the SFU's time on the SMs the
+     plan holds, the overlap fraction at M=512 and 4224), P3 SiLU(a @ w)
+     with and without an overlapped epilogue (``probes.pipeline``: TMA-fed
+     wgmma, cooperative and ping-pong, beside ``F.silu(a @ w)``), P1 the
      int8 EGCL edge tile in stages at N=192 (``probes.kernel_stages``).
 
 Any failed check raises, and the script exits non-zero without its result
@@ -58,6 +75,7 @@ larger), the card's name and power limit, and ``{"ok": true, "device":
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -74,6 +92,8 @@ GOLDEN_K = 6           # neighbours of the fixture's kNN goldens
 LARGE_K = 32           # the 512-atom model class's neighbor_k
 LARGE_ATOMS = 2048
 MID_ATOMS = 512
+SERVED_LAUNCHES = 10010   # 2 chunks x 1001 denoiser calls x 5 layers
+PLAIN_ROUTE_T = (0.2, 0.5, 0.9)   # t/T of the plain-route phase's calls
 
 
 def log(record: dict) -> None:
@@ -106,6 +126,43 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def sass_counts(source: str) -> dict:
+    """Tensor-core instructions per kernel of the library built from
+    ``csrc/<source>``, from ``cuobjdump -sass``: function -> counts of
+    HGMMA, IGMMA (warpgroup MMA, bf16 / int8), HMMA and IMMA (warp MMA)."""
+    from diffusion_model_tpu_torch.ops import _build
+
+    tool = Path(_build.find_nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "-sass", str(_build.library_path(source))],
+                         capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    counts, function = {}, None
+    for line in out.splitlines():
+        if "Function :" in line:
+            function = line.split("Function :")[1].strip()
+            counts[function] = dict.fromkeys(("HGMMA", "IGMMA", "HMMA",
+                                              "IMMA"), 0)
+        elif function is not None:
+            for tag in re.findall(r"\b(HGMMA|IGMMA|HMMA|IMMA)\b", line):
+                counts[function][tag] += 1
+    return {f: c for f, c in counts.items() if any(c.values())}
+
+
+def check_sass(sources) -> dict:
+    """Every tensor-core kernel of these libraries on warpgroup MMA and
+    none on warp MMA; returns the counts."""
+    report = {}
+    for source in sources:
+        counts = sass_counts(source)
+        warpgroup = sum(c["HGMMA"] + c["IGMMA"] for c in counts.values())
+        warp = sum(c["HMMA"] + c["IMMA"] for c in counts.values())
+        if warpgroup == 0 or warp != 0:
+            raise AssertionError(f"{source}: SASS has {warpgroup} HGMMA/IGMMA "
+                                 f"and {warp} HMMA/IMMA: {counts}")
+        report[source] = counts
+    return report
 
 
 def load_fixture(device):
@@ -316,8 +373,9 @@ def phase_kernels(cfg, params, fx, cell, device) -> dict:
     log({"phase": "kernel_vs_plain", "checks": checks, "timings": timings})
     return {"max_abs_err": main_err, "ms": main["kernel_ms"],
             "plain_ms": main["plain_ms"], "library_ms": None,
-            **{k: main[k] for k in ("bound_ms", "bound_by", "live_edges",
-                                    "rows_computed", "live_tflops")}}
+            **{k: main[k] for k in ("bound_ms", "bound_by", "bound_kind",
+                                    "live_edges", "rows_computed",
+                                    "live_tflops")}}
 
 
 def phase_knn_kernel(cfg, params, fx, device) -> dict:
@@ -352,8 +410,9 @@ def phase_knn_kernel(cfg, params, fx, device) -> dict:
          "timings": timings})
     return {"max_abs_err": main_err, "ms": main["kernel_ms"],
             "plain_ms": main["plain_ms"], "library_ms": None,
-            **{k: main[k] for k in ("bound_ms", "bound_by", "live_edges",
-                                    "rows_computed", "live_tflops")}}
+            **{k: main[k] for k in ("bound_ms", "bound_by", "bound_kind",
+                                    "live_edges", "rows_computed",
+                                    "live_tflops")}}
 
 
 def phase_knn_is_dense(cfg, params, fx, device) -> None:
@@ -500,9 +559,11 @@ def phase_generate(cfg, params, graphs, device) -> int:
         raise AssertionError(f"generate returned wrong shapes: {rec}")
     if not keep.all():
         raise AssertionError(f"not every sample accepted: {rec}")
-    if launches[route] == 0 or launches[route] != cfg.L * calls[0]:
+    if launches[route] != cfg.L * calls[0] or launches[route] != \
+            SERVED_LAUNCHES:
         raise AssertionError(
-            f"{route} launches {launches[route]} != L x denoiser calls: {rec}")
+            f"{route} launches {launches[route]} != L x denoiser calls = "
+            f"{SERVED_LAUNCHES}: {rec}")
     if launches[other] != 0:
         raise AssertionError(f"{other} launched on the {route} route: {rec}")
     si_o = median_si_o(out["generated_pos"], out["generated_species"],
@@ -646,6 +707,123 @@ def phase_large_cell(cfg, params, device, card: str) -> None:
             f"kernel-route denoiser calls")
 
 
+def seeded_inputs(cfg, b: int, t: float, seed: int = 0):
+    """Denoiser inputs of ``b`` graphs of ``cfg.n_max`` nodes (6 to n_max
+    real) from a numpy seed: noisy species and positions, a spectrum per
+    node, the excited atom first, ``t/T = t``; float32 on the CPU."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    n = cfg.n_max
+    real = rng.integers(6, n + 1, size=b)
+    mask = (np.arange(n)[None] < real[:, None]).astype(np.float32)
+    m3 = mask[..., None]
+    exo = np.zeros((b, n, 1), np.float32)
+    exo[:, 0] = 1.0
+    arrays = (rng.normal(size=(b, n, cfg.atom_type_size)) * m3,
+              rng.normal(size=(b, n, 3)) * 1.5 * m3,
+              rng.random((b, n, cfg.spectrum_size)), exo * m3, t * m3, mask)
+    return [torch.from_numpy(np.asarray(a, np.float32)) for a in arrays]
+
+
+def phase_plain_route(device) -> None:
+    """Models whose widths the kernels do not take, on the card through the
+    plain route, held against the same calls on the CPU."""
+    import torch
+
+    from diffusion_model_tpu_torch.config import Config
+    from diffusion_model_tpu_torch.nn import egnn
+    from diffusion_model_tpu_torch.nn.denoiser import DiffusionDenoiser
+    from diffusion_model_tpu_torch.ops import egcl_knn, egcl_pair
+    from diffusion_model_tpu_torch.ops.edges import knn_edges
+
+    models = {
+        "tiny_dense": Config(L=2, m_hidden_size=32, m_size=16,
+                             h_hidden_size=32, x_hidden_size=32,
+                             compressed_spectrum_size=8,
+                             compressor_hidden_dim=(16,), n_max=16),
+        "h204_knn": Config(L=2, to_compress_spectrum=False,
+                           neighbor_k=SERVED_K, n_max=16),
+    }
+    rec = {"phase": "plain_route", "budget_elements":
+           egnn.PLAIN_EDGE_ELEMENTS, "batch": GEN_BATCH * GEN_PER_CONDITION,
+           "tolerance": "float32 rtol 2e-4 / atol 2e-5 of the output scale"}
+    for name, cfg in models.items():
+        k = cfg.neighbor_k
+        route = egnn.edge_route(cfg.m_hidden_size, cfg.x_hidden_size,
+                                cfg.m_size, cfg.torch_dtype,
+                                cfg.h_size if k else None)
+        if route != "plain":
+            raise AssertionError(f"{name}: edge_route says {route}")
+        torch.manual_seed(0)
+        cpu_model = DiffusionDenoiser(cfg)
+        card_model = DiffusionDenoiser(cfg, device=device)
+        card_model.load_state_dict(cpu_model.state_dict())
+        launches = (egcl_pair.egcl_pair_launches, egcl_knn.egcl_knn_launches)
+        calls, worst = 0, 0.0
+        for i, t in enumerate(PLAIN_ROUTE_T):
+            inputs = seeded_inputs(cfg, GEN_BATCH * GEN_PER_CONDITION, t, i)
+            card_in = [a.to(device) for a in inputs]
+            before = egnn.plain_edge_calls
+            got = card_model(*card_in, knn_edges(card_in[1], card_in[5], k)
+                             if k else None)
+            torch.cuda.synchronize()
+            calls += egnn.plain_edge_calls - before
+            want = cpu_model(*inputs, knn_edges(inputs[1], inputs[5], k)
+                             if k else None)
+            scale = max(float(w.abs().max()) for w in want)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g.cpu(), w, rtol=2e-4,
+                                           atol=2e-5 * scale)
+                worst = max(worst, float((g.cpu() - w).abs().max()) / scale)
+        if calls != cfg.L * len(PLAIN_ROUTE_T):
+            raise AssertionError(f"{name}: {calls} plain-route calls on the "
+                                 f"card, want L x calls")
+        if (egcl_pair.egcl_pair_launches,
+                egcl_knn.egcl_knn_launches) != launches:
+            raise AssertionError(f"{name}: a kernel was launched on the "
+                                 f"plain route")
+        rec[name] = {"h_size": cfg.h_size, "f1": cfg.m_hidden_size,
+                     "fm": cfg.m_size, "neighbor_k": k, "route": route,
+                     "plain_edge_calls_on_card": calls,
+                     "worst_abs_err_over_scale": worst}
+    log(rec)
+
+
+def launches_per_call(cfg, params, fx, device) -> dict:
+    """Kernels one flagship denoiser call launches (bf16, the served 80 x
+    16 chunk, dense route), by ``torch.profiler``: the first call of a
+    fresh model casts its weights, the next finds them cast."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffusion_model_tpu_torch.api import denoiser_from_params
+
+    model = denoiser_from_params(cfg, params, device)
+    inputs = served_inputs(fx)
+
+    def kernels() -> dict:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            model(*inputs)
+            torch.cuda.synchronize()
+        events = prof.events()
+        device_kernels = [e for e in events
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and not e.name.startswith(("Memcpy", "Memset"))]
+        runtime = [e for e in events if e.name.startswith(
+            ("cudaLaunchKernel", "cuLaunchKernel"))]
+        return {"device_kernels": len(device_kernels),
+                "runtime_launches": len(runtime)}
+
+    rec = {"first_call": kernels(), "next_call": kernels()}
+    if not (rec["first_call"]["device_kernels"]
+            > rec["next_call"]["device_kernels"] > 0):
+        raise AssertionError(f"launches per denoiser call: {rec}")
+    return rec
+
+
 def edge_flops(f1: int, fm: int, h: int = 0) -> int:
     """Tensor-core FLOPs of one live edge: both second-layer products, and
     for K2 the j-side first layer (4 H F1)."""
@@ -745,30 +923,52 @@ def phase_matmul_rate(device, card: str) -> dict:
         max_abs_err=max(r["max_abs_err"] for r in checks
                         if r["dtype"] == "int8"),
         ms=main["ms"], plain_ms=plain_ms["int8"], library_ms=library["ms"],
-        **{k: main[k] for k in ("bound_ms", "bound_by", "bound_ms_by")})
+        **{k: main[k] for k in ("bound_ms", "bound_by", "bound_kind",
+                                "bound_ms_by")})
 
 
-def phase_overlap(device, card: str) -> dict:
-    """P4: the three modes against the plain version at M = 512, then the
-    probe's t_mxu, t_vpu, t_both and overlap fraction."""
+def phase_overlap(device, card: str, p2_int8_block_ms: float) -> dict:
+    """P4: the three modes against the plain version at M = 512 and 4224,
+    its mxu mode against P2's int8 block chain bit for bit, then the
+    probe's t_mxu, t_vpu, t_both and overlap fraction at both M, each mode
+    beside the SFU's time on the SMs the plan holds, and at M = 512 mxu
+    over P2's int8 block chain of this run."""
+    import torch
+
+    from diffusion_model_tpu_torch.probes import matmul_rate as mr
     from diffusion_model_tpu_torch.probes import overlap as ov
 
     checks = ov.check_on_card(device)
     a, w, y = ov.make_inputs(ov.M, ov.N, device)
+    x_p4 = ov.overlap(a, w, y, ov.STEPS, "mxu")[0]
+    x_p2 = mr.chain(a, w, ov.STEPS, "block")
+    torch.cuda.synchronize()
+    if not torch.equal(x_p4, x_p2):
+        raise AssertionError(f"P4's mxu chain differs from P2's int8 block "
+                             f"chain in {int((x_p4 != x_p2).sum())} values")
     plain_ms = cuda_ms(lambda: ov.overlap_reference(a, w, y), 3)
     ov.probe_overlap_launches = 0
     timings = ov.measure(device, reps=10)
     launches = ov.probe_overlap_launches
-    log({"phase": "probe_overlap", "card": card, "checks": checks,
-         "timings": timings, "launches": launches})
     main = timings[0]                        # M = 512, mode "both"
+    main["mxu_over_p2_int8_block"] = main["mxu_ms"] / p2_int8_block_ms
+    log({"phase": "probe_overlap", "card": card, "checks": checks,
+         "mxu_equals_p2_block_chain": True, "timings": timings,
+         "p2_int8_block_ms": p2_int8_block_ms, "launches": launches,
+         "targets_m512": {
+             "both_ms <= 1.5": main["both_ms"] <= 1.5,
+             "mxu <= 1.15 x P2 int8 block": main["mxu_over_p2_int8_block"]
+             <= 1.15,
+             "vpu <= 2 x SFU on the plan's SMs":
+             main["vpu_over_sfu_on_plan_sms"] <= 2.0}})
     return probe_kernel(
         "probe_overlap", "probe_overlap.cu",
         "benchmarks/probe_overlap.py:45", launches,
         max_abs_err=max(r["max_abs_err"] for r in checks
                         if r["steps"] != ov.STEPS),
         ms=main["both_ms"], plain_ms=plain_ms, library_ms=None,
-        **{k: main[k] for k in ("bound_ms", "bound_by", "bound_ms_by")})
+        **{k: main[k] for k in ("bound_ms", "bound_by", "bound_kind",
+                                "bound_ms_by", "overlap_fraction")})
 
 
 def phase_pipeline(device, card: str) -> dict:
@@ -783,14 +983,21 @@ def phase_pipeline(device, card: str) -> dict:
     timings = pl.measure(device)
     launches = pl.probe_pipeline_launches
     log({"phase": "probe_pipeline", "card": card, "checks": checks,
-         "timings": timings, "launches": launches})
+         "timings": timings, "launches": launches,
+         "targets": {
+             "pipelined < 0.9 x library": timings["pipelined_ms"]
+             < 0.9 * timings["library_ms"],
+             "seq <= library": timings["seq_ms"] <= timings["library_ms"],
+             "pipelined <= 2 x bound": timings["pipelined_ms"]
+             <= 2 * timings["bound_ms"]}})
     return probe_kernel(
         "probe_pipeline", "probe_pipeline.cu",
         "benchmarks/probe_pipeline.py:66", launches,
         max_abs_err=max(r["max_abs_err"] for r in checks),
         ms=timings["pipelined_ms"], plain_ms=plain_ms,
-        library_ms=timings["library_ms"],
-        **{k: timings[k] for k in ("bound_ms", "bound_by", "bound_ms_by")})
+        library_ms=timings["library_ms"], seq_ms=timings["seq_ms"],
+        **{k: timings[k] for k in ("bound_ms", "bound_by", "bound_kind",
+                                   "bound_ms_by", "mufu_ops")})
 
 
 def phase_kernel_stages(device, card: str) -> dict:
@@ -835,6 +1042,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    from diffusion_model_tpu_torch.nn import egnn
     from diffusion_model_tpu_torch.ops import _build, egcl_knn, egcl_pair
     from diffusion_model_tpu_torch.probes import (
         kernel_stages,
@@ -855,25 +1063,49 @@ def main() -> int:
     _build.build_all([m._SOURCE for m in modules])
     for m in modules:
         m.build()
+    build_s = time.perf_counter() - t0
     log({"phase": "toolchain", "nvidia_smi": card,
          "torch": torch.__version__, "torch_cuda": torch.version.cuda,
-         "nvcc": _build.find_nvcc(), "kernel_build_s":
-         time.perf_counter() - t0})
+         "nvcc": _build.find_nvcc(), "kernel_build_s": build_s,
+         "sass": check_sass([m._SOURCE for m in (egcl_pair, egcl_knn,
+                                                 matmul_rate, overlap,
+                                                 pipeline)])})
 
     cfg = load_config_npz(str(SNAPSHOT))
     params = load_params_npz(str(SNAPSHOT))
     fx, graphs, cell = load_fixture(device)
+    plain_calls = {}
+
+    def kernels_only(name, phase, *args):
+        """``phase(*args)``, which must never take the plain route."""
+        egnn.plain_edge_calls = 0
+        out = phase(*args)
+        plain_calls[name] = egnn.plain_edge_calls
+        if egnn.plain_edge_calls:
+            raise AssertionError(f"{name} took the plain route "
+                                 f"{egnn.plain_edge_calls} times")
+        return out
+
     pair = phase_kernels(cfg, params, fx, cell, device)
     phase_denoiser(cfg, params, fx, device)
-    pair_launches = phase_generate(cfg, params, graphs, device)
-    phase_headline(cfg, params, cell, device, card)
+    pair_launches = kernels_only("generate", phase_generate, cfg, params,
+                                 graphs, device)
+    kernels_only("headline", phase_headline, cfg, params, cell, device, card)
     knn = phase_knn_kernel(cfg, params, fx, device)
     phase_knn_is_dense(cfg, params, fx, device)
     phase_denoiser(cfg, params, fx, device, k=GOLDEN_K)
-    knn_launches = phase_generate(cfg.replace(neighbor_k=SERVED_K), params,
-                                  graphs, device)
-    phase_large_cell(cfg, params, device, card)
-    probes = [phase_matmul_rate(device, card), phase_overlap(device, card),
+    knn_launches = kernels_only("generate_knn", phase_generate,
+                                cfg.replace(neighbor_k=SERVED_K), params,
+                                graphs, device)
+    kernels_only("large_cell", phase_large_cell, cfg, params, device, card)
+    log({"phase": "flagship_routes", "plain_edge_calls": plain_calls,
+         "egcl_pair_launches_served": pair_launches,
+         "egcl_knn_launches_served": knn_launches,
+         "launches_per_denoiser_call": launches_per_call(
+             cfg.replace(compute_dtype="bfloat16"), params, fx, device)})
+    phase_plain_route(device)
+    p2 = phase_matmul_rate(device, card)
+    probes = [p2, phase_overlap(device, card, p2["ms"]),
               phase_pipeline(device, card),
               phase_kernel_stages(device, card)]
 

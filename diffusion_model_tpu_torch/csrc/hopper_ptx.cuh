@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the EGCL edge tile
-// (egcl_edge_tile.cuh: K1, K2) and the chained-product probe
-// (probe_matmul_rate.cu: P2): mbarriers, TMA loads (plain and multicast),
-// thread-block clusters and distributed shared memory, the wgmma
-// synchronisation, 128-byte-swizzled matrix descriptors, K-major wgmma
-// products in bf16 and int8, and tensor-map encoding on the host.
+// (egcl_edge_tile.cuh: K1, K2), the chained products (chain_kernel.cuh:
+// P2, P4) and the SiLU product (probe_pipeline.cu: P3): mbarriers, TMA
+// loads (plain and multicast) and stores, thread-block clusters and
+// distributed shared memory, the wgmma synchronisation, 128-byte-swizzled
+// matrix descriptors, K-major wgmma products in bf16 and int8, a transpose,
+// and tensor-map encoding on the host.
 //
 // Nothing here knows a kernel's tiles: a kernel brings its own layouts.
 
@@ -86,6 +87,30 @@ __device__ __forceinline__ void tma_load_multicast(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask), "r"(col),
       "r"(row)
       : "memory");
+}
+// The box at (col, row) of `map` from this block's shared memory at `src`
+// (laid out as the box lands in a load), as a bulk async-group of the
+// issuing thread; elements outside the matrix are not written.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(col), "r"(row)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// Until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+// Until at most N of this thread's bulk groups are still under way.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
 }
 // Generic-proxy writes of shared memory made visible to the async proxy
 // (wgmma, bulk copies); each writing thread fences before the barrier.
@@ -302,6 +327,23 @@ __device__ __forceinline__ void wgmma_kmajor(int* d, uint64_t da,
 #undef HOPPER_REGS32
 #undef HOPPER_REGS64
 #undef HOPPER_REGS128
+
+// --- a transpose (the K-major B operand, once per call) ---
+
+// out[c, r] = in[r, c] for a row-major [rows, cols] matrix, rows and cols
+// multiples of 32; blocks of 256 threads on a (cols / 32, rows / 32) grid.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    transpose_kernel(const T* in, T* out, int rows, int cols) {
+  __shared__ T tile[32][33];
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int r0 = blockIdx.y * 32, c0 = blockIdx.x * 32;
+  for (int r = ty; r < 32; r += 8)
+    tile[r][tx] = in[size_t(r0 + r) * cols + c0 + tx];
+  __syncthreads();
+  for (int r = ty; r < 32; r += 8)
+    out[size_t(c0 + r) * rows + r0 + tx] = tile[tx][r];
+}
 
 // --- host: tensor maps ---
 

@@ -4,215 +4,266 @@
 // Replaces benchmarks/probe_pipeline.py:40 make_seq and :66 make_pipelined
 // (the Pallas TPU probe of software pipelining at the flagship EGCL's
 // second-layer shape, a [36864, 1024] @ w [1024, 1024], bf16 in, float32
-// accumulation, SiLU, bf16 out). Two schedules of one kernel, as the TPU
-// probe has two:
-//   seq        each persistent block computes an output tile's product,
-//              then its SiLU epilogue and store, then the next tile;
-//   pipelined  each persistent block splits into 8 product warps and 4
-//              epilogue warps (warp specialisation): the product warps
-//              write tile c's float32 sums into one of two shared-memory
-//              buffers and go on to tile c+1 while the epilogue warps apply
-//              SiLU to tile c and store it. Named barriers (bar.sync /
-//              bar.arrive) hand each buffer over, full and back empty.
+// accumulation, SiLU, bf16 out).
 //
 // What bounds it: tensor-core operations, 2*R*K*N = 77.3 GFLOP at the probe's
 // shape (78 us at the 989 TFLOP/s bf16 peak), against 153 MB of a, w and
-// out (46 us at 3.35 TB/s). The tiles are 128 x 128 with k-slices of 64
-// staged through shared memory (WMMA m16n16k16 bf16 -> f32, each of 8 warps
-// 32 x 64); one persistent block an SM walks the tiles in row-major order,
-// so neighbouring blocks share rows of a in L2.
+// out (46 us at 3.35 TB/s). One PyTorch call, F.silu(a @ w), is a GEMM and
+// then a second pass over the 75 MB product; the fused epilogue saves that
+// pass, so the kernel has to run its products near the tensor cores' rate.
+//
+// What the design does about it. A persistent grid, one block an SM, walks
+// the output tiles (tile t, t + grid, ...; neighbouring blocks share rows of
+// a in L2, and all of w stays there). A producer warp keeps a ring of
+// stages full by TMA (one 64-wide K-block of the a rows and of the w
+// columns a stage, 128-byte swizzle), running ahead across tiles; two
+// consumer warpgroups multiply with wgmma (bf16 -> f32) straight from the
+// ring, one stage's products in flight while they wait for the next, and
+// hand each stage back as soon as its products are done. The epilogue is
+// SiLU on the accumulator registers (silu(v) = h + h tanh(h), h = v / 2:
+// one MUFU.TANH a value), bf16, written 64 x 64 at a time into a swizzled
+// staging tile of the warpgroup and stored by TMA, so the stores cost the
+// load-store unit nothing and write whole lines. The wgmma descriptors here
+// are K-major (hopper_ptx.cuh), so w is transposed once per call
+// (transpose_kernel, 2 MB, inside the call).
+// Two schedules of one kernel, as the TPU probe has two:
+//   seq        (the "cooperative" shape) both consumer warpgroups share a
+//              128 x 256 tile, 64 rows each, and run its epilogue after its
+//              products; the producer loads the next tile's stages
+//              meanwhile, but the tensor cores wait for the epilogue.
+//   pipelined  (the "ping-pong" shape) the warpgroups take alternate tiles
+//              of 128 x 128 (two m64n128 products a step each), so one
+//              warpgroup's SiLU and stores run while the other's products
+//              do. Their mainloops take turns (an mbarrier a warpgroup,
+//              `turn`): a warpgroup starts a tile's products only when the
+//              other has finished the tile before. That keeps every wait
+//              on a ring stage within one phase of the stage's barrier: an
+//              mbarrier's parity tells only two phases apart, and a
+//              warpgroup that ran a tile ahead would take an earlier load
+//              of its stage for its own.
+// Both keep 128 accumulators a thread; a stage is 48 KB (seq) or 32 KB
+// (pipelined), 4 or 6 of them, 192 KB of ring beside 32 KB of staging.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "hopper_ptx.cuh"
 
 namespace {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
-constexpr int kBM = 128, kBN = 128, kBK = 64;
-constexpr int kMmaThreads = 256;  // 8 warps, 4 x 2, each 32 x 64
-constexpr int kEpiThreads = 128;  // the epilogue warps of `pipelined`
-constexpr int kLda = kBK + 8;     // bf16 row stride of the staged a slice
-constexpr int kLdb = kBN + 8;     // bf16 row stride of the staged w slice
-constexpr int kLde = kBN + 4;     // float row stride of an epilogue tile
-constexpr size_t kStageA = size_t(kBM) * kLda * 2;
-constexpr size_t kStageB = size_t(kBK) * kLdb * 2;
-constexpr size_t kTileE = size_t(kBM) * kLde * 4;
+constexpr int kBM = 128;          // rows of a tile
+constexpr int kBK = 64;           // K of a stage: one 128-byte K-block
+constexpr int kConsumers = 256;   // two consumer warpgroups
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+constexpr int kChunk = 64 * 64 * 2;        // bytes of a 64 x 64 staging tile
+constexpr int kStaging = 2 * 2 * kChunk;   // two a warpgroup
+constexpr int kAlign = 1024;               // the swizzle's period
 
-// Named barriers; 0 is __syncthreads.
-constexpr int kMainloopBar = 1;  // among the product warps
-constexpr int kFullBar = 2;      // + buffer: sums written
-constexpr int kEmptyBar = 4;     // + buffer: sums read
+template <bool kPingPong>
+struct Shape {
+  static constexpr int kBN = kPingPong ? 128 : 256;   // columns of a tile
+  static constexpr int kStages = kPingPong ? 6 : 4;
+  static constexpr int kStageA = kBM * 128;           // bytes
+  static constexpr int kStageB = kBN * 128;
+  static constexpr int kStage = kStageA + kStageB;
+  static constexpr int kUsers = kPingPong ? 1 : 2;    // warpgroups a stage
+  static constexpr int kSmem =
+      kAlign + kStages * kStage + kStaging + kStages * 16 + 16;
+  static_assert(kSmem <= 232448, "shared memory");
+};
 
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
-}
-
-struct Problem {
-  const bf16* a;  // [R, K]
-  const bf16* w;  // [K, N]
-  bf16* out;      // [R, N]
+struct Args {
+  CUtensorMap map_a;   // a [R, K], boxes of 128 rows x 64
+  CUtensorMap map_b;   // w^T [N, K], boxes of kBN rows x 64
+  CUtensorMap map_o;   // out [R, N], boxes of 64 rows x 64
   int R, K, N;
 };
 
-using Acc = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16,
-                                   float>;
-
-// acc = the product of output tile (tm, tn); product warps only.
-__device__ void tile_mainloop(const Problem& p, int tm, int tn, bf16* As,
-                              bf16* Bs, Acc (&acc)[2][4]) {
-  using namespace nvcuda;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-  const bf16* a = p.a + size_t(tm) * kBM * p.K;
-  const bf16* w = p.w + size_t(tn) * kBN;
-  for (int k0 = 0; k0 < p.K; k0 += kBK) {
-    bar_sync(kMainloopBar, kMmaThreads);  // the previous slices are read
-    for (int v = tid; v < kBM * kBK / 8; v += kMmaThreads) {
-      const int r = v / (kBK / 8);
-      const int c = (v % (kBK / 8)) * 8;
-      *reinterpret_cast<uint4*>(As + r * kLda + c) =
-          *reinterpret_cast<const uint4*>(a + size_t(r) * p.K + k0 + c);
-    }
-    for (int v = tid; v < kBK * kBN / 8; v += kMmaThreads) {
-      const int r = v / (kBN / 8);
-      const int c = (v % (kBN / 8)) * 8;
-      *reinterpret_cast<uint4*>(Bs + r * kLdb + c) =
-          *reinterpret_cast<const uint4*>(w + size_t(k0 + r) * p.N + c);
-    }
-    bar_sync(kMainloopBar, kMmaThreads);
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], As + (wm * 32 + i * 16) * kLda + kk,
-                               kLda);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        wmma::load_matrix_sync(bfr, Bs + kk * kLdb + wn * 64 + j * 16, kLdb);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::mma_sync(acc[i][j], af[i], bfr, acc[i][j]);
-      }
-    }
-  }
-}
-
-__device__ void store_acc(float* E, Acc (&acc)[2][4]) {
-  using namespace nvcuda;
-  const int warp = threadIdx.x >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(E + (wm * 32 + i * 16) * kLde + wn * 64 + j * 16,
-                              acc[i][j], kLde, wmma::mem_row_major);
-}
-
 __device__ __forceinline__ float silu(float v) {
-  return v / (1.0f + expf(-v));
+  const float h = 0.5f * v;
+  float t;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(t) : "f"(h));
+  return fmaf(h, t, h);
 }
 
-// Two bf16(silu(.)) values packed as one 32-bit word, lower column first.
-__device__ __forceinline__ uint32_t pack_silu(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(silu(lo), silu(hi));
-  return *reinterpret_cast<const uint32_t*>(&h);
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;" ::"r"(2 + wg) : "memory");
 }
 
-// out tile (tm, tn) = bf16(silu(E)), by `n` threads numbered t, 8 columns
-// (one 16-byte store) at a time.
-__device__ void epilogue(const Problem& p, const float* E, int tm, int tn,
-                         int t, int n) {
-  for (int v = t; v < kBM * kBN / 8; v += n) {
-    const int r = v / (kBN / 8);
-    const int c = (v % (kBN / 8)) * 8;
-    const float4 lo = *reinterpret_cast<const float4*>(E + r * kLde + c);
-    const float4 hi = *reinterpret_cast<const float4*>(E + r * kLde + c + 4);
-    const uint4 q = {pack_silu(lo.x, lo.y), pack_silu(lo.z, lo.w),
-                     pack_silu(hi.x, hi.y), pack_silu(hi.z, hi.w)};
-    *reinterpret_cast<uint4*>(p.out + size_t(tm * kBM + r) * p.N + tn * kBN +
-                              c) = q;
-  }
-}
-
-template <bool PIPELINED>
-__global__ void __launch_bounds__(PIPELINED ? kMmaThreads + kEpiThreads
-                                            : kMmaThreads)
-    pipeline_kernel(Problem p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = reinterpret_cast<bf16*>(smem + kStageA);
-  float* E[2] = {reinterpret_cast<float*>(smem + kStageA + kStageB),
-                 reinterpret_cast<float*>(smem + kStageA + kStageB + kTileE)};
-  const int tiles_n = p.N / kBN;
+template <bool kPingPong>
+__global__ void __launch_bounds__(kThreads, 1)
+    pipeline_kernel(const __grid_constant__ Args p) {
+  using S = Shape<kPingPong>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base =
+      (smem_u32(smem_raw) + kAlign - 1) & ~uint32_t(kAlign - 1);
+  unsigned char* base_ptr = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t ring = base;
+  const uint32_t staging = ring + S::kStages * S::kStage;
+  const uint32_t full = staging + kStaging;
+  const uint32_t empty = full + S::kStages * 8;
+  const uint32_t turn = empty + S::kStages * 8;  // pipelined: one a warpgroup
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int tiles_n = (p.N + S::kBN - 1) / S::kBN;
   const int tiles = (p.R / kBM) * tiles_n;
-  const int tid = threadIdx.x;
+  const int kblocks = p.K / kBK;
 
-  if (!PIPELINED) {
-    Acc acc[2][4];
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      tile_mainloop(p, t / tiles_n, t % tiles_n, As, Bs, acc);
-      store_acc(E[0], acc);  // the mainloop's barriers ordered E's readers
-      bar_sync(kMainloopBar, kMmaThreads);
-      epilogue(p, E[0], t / tiles_n, t % tiles_n, tid, kMmaThreads);
+  if (tid == 0) {
+    for (int i = 0; i < S::kStages; ++i) {
+      mbar_init(full + i * 8, 1);
+      mbar_init(empty + i * 8, 4 * S::kUsers);  // each consumer warp
+    }
+    // a warpgroup's turn comes when each warp of the other has finished
+    // the products of the tile before
+    for (int g = 0; g < 2; ++g) mbar_init(turn + g * 8, 4);
+    fence_mbarrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {
+    // --- producer: every tile's stages, in tile order ---
+    if ((tid & 31) == 0) {
+      int st = 0, round = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int row = (t / tiles_n) * kBM, col = (t % tiles_n) * S::kBN;
+        for (int kb = 0; kb < kblocks; ++kb) {
+          const uint32_t bar = full + st * 8, dst = ring + st * S::kStage;
+          if (round > 0) mbar_wait(empty + st * 8, (round - 1) & 1);
+          mbar_expect_tx(bar, S::kStage);
+          tma_load(dst, &p.map_a, bar, kb * kBK, row);
+          tma_load(dst + S::kStageA, &p.map_b, bar, kb * kBK, col);
+          if (++st == S::kStages) st = 0, ++round;
+        }
+      }
     }
     return;
   }
-  const int mine = (tiles - int(blockIdx.x) + int(gridDim.x) - 1) /
-                   int(gridDim.x);
-  const int all = kMmaThreads + kEpiThreads;
-  if (tid < kMmaThreads) {
-    Acc acc[2][4];
-    int c = 0;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++c) {
-      tile_mainloop(p, t / tiles_n, t % tiles_n, As, Bs, acc);
-      const int b = c & 1;
-      if (c >= 2) bar_sync(kEmptyBar + b, all);  // tile c-2 has left E[b]
-      store_acc(E[b], acc);
-      bar_arrive(kFullBar + b, all);
+
+  // --- consumers ---
+  const int wg = warp >> 2, wtid = tid & 127, lane = tid & 31;
+  const int q = lane & 3, r0 = (warp & 3) * 16 + (lane >> 2);
+  unsigned char* stage_out = base_ptr + (staging - base) + wg * 2 * kChunk;
+  const uint32_t stage_out_u32 = staging + wg * 2 * kChunk;
+  float acc[128];
+  int chunks = 0;  // staging tiles this warpgroup has filled
+  // tiles of this warpgroup: all (seq) or every other one (pipelined)
+  const int first = kPingPong ? wg : 0, every = kPingPong ? 2 : 1;
+  int c = first;
+  for (int t = blockIdx.x + first * gridDim.x; t < tiles;
+       t += every * gridDim.x, c += every) {
+    const int row = (t / tiles_n) * kBM, col = (t % tiles_n) * S::kBN;
+    // tile c - 1 (the other warpgroup's) has had its products
+    if (kPingPong && c > 0) mbar_wait(turn + wg * 8, ((c - 1) >> 1) & 1);
+    // this tile's first ring position
+    int st = (c * kblocks) % S::kStages, round = (c * kblocks) / S::kStages;
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    int before = -1;
+    for (int kb = 0; kb < kblocks; ++kb) {
+      mbar_wait(full + st * 8, round & 1);
+      const uint32_t a = ring + st * S::kStage, b = a + S::kStageA;
+      wgmma_fence();
+      fence_regs(acc, 128);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {  // 128 bytes of K, 32 a product
+        if constexpr (kPingPong) {
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+            wgmma_kmajor<128>(acc + 64 * mi,
+                              sw128_desc(a + mi * 8192 + k * 32, 16, 1024),
+                              sw128_desc(b + k * 32, 16, 1024));
+        } else {
+          wgmma_kmajor<256>(acc, sw128_desc(a + wg * 8192 + k * 32, 16, 1024),
+                            sw128_desc(b + k * 32, 16, 1024));
+        }
+      }
+      wgmma_commit();
+      if (before >= 0) {
+        wgmma_wait<1>();
+        if (lane == 0) mbar_arrive(empty + before * 8);
+      }
+      before = st;
+      if (++st == S::kStages) st = 0, ++round;
     }
-  } else {
-    int c = 0;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++c) {
-      const int b = c & 1;
-      bar_sync(kFullBar + b, all);
-      epilogue(p, E[b], t / tiles_n, t % tiles_n, tid - kMmaThreads,
-               kEpiThreads);
-      if (c + 2 < mine) bar_arrive(kEmptyBar + b, all);
+    wgmma_wait<0>();
+    fence_regs(acc, 128);
+    if (lane == 0) {
+      mbar_arrive(empty + before * 8);
+      if (kPingPong) mbar_arrive(turn + (wg ^ 1) * 8);  // the other's turn
+    }
+
+    // --- epilogue: four 64 x 64 chunks, SiLU, bf16, TMA stores ---
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) {
+      // seq: rows 64 wg .. of the tile, columns 64 ch ..; pipelined: rows
+      // 64 (ch / 2) .., columns 64 (ch % 2) ..
+      const int mi = kPingPong ? ch >> 1 : 0;
+      const int cb = kPingPong ? ch & 1 : ch;
+      const int rows = row + (kPingPong ? 64 * mi : 64 * wg);
+      const float* v = acc + 64 * mi + 32 * cb;
+      const int buf = chunks & 1;
+      if (wtid == 0) bulk_wait_read<1>();  // the store of two chunks ago
+      wg_sync(wg);
+      unsigned char* dst = stage_out + buf * kChunk;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const __nv_bfloat162 pair = __floats2bfloat162_rn(
+              silu(v[4 * j + 2 * h]), silu(v[4 * j + 2 * h + 1]));
+          *reinterpret_cast<__nv_bfloat162*>(
+              dst + kmajor_offset(r0 + 8 * h, (8 * j + 2 * q) * 2, 64)) = pair;
+        }
+      fence_proxy_async();
+      wg_sync(wg);
+      if (wtid == 0) {
+        tma_store(&p.map_o, stage_out_u32 + buf * kChunk, col + 64 * cb,
+                  rows);
+        bulk_commit();
+      }
+      ++chunks;
     }
   }
+  if (wtid == 0) bulk_wait<0>();
 }
 
-template <bool PIPELINED>
-int launch(const Problem& p, cudaStream_t stream) {
-  const size_t smem = kStageA + kStageB + (PIPELINED ? 2 : 1) * kTileE;
+int multiprocessors() {
+  static int sms = 0;
+  if (sms == 0) {
+    int device = 0;
+    if (cudaGetDevice(&device) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                               device) != cudaSuccess)
+      sms = 0;
+  }
+  return sms;
+}
+
+template <bool kPingPong>
+int launch(const bf16* a, const bf16* w, bf16* out, bf16* wT, int R, int K,
+           int N, cudaStream_t stream) {
+  using S = Shape<kPingPong>;
+  Args args{};
+  int rc = encode_kmajor(&args.map_a, a, R, K, 2, kBM);
+  if (rc == 0) rc = encode_kmajor(&args.map_b, wT, N, K, 2, S::kBN);
+  if (rc == 0) rc = encode_kmajor(&args.map_o, out, R, N, 2, 64);
+  if (rc != 0) return rc;
+  args.R = R;
+  args.K = K;
+  args.N = N;
+  const int sms = multiprocessors();
+  if (sms == 0) return int(cudaErrorInvalidDevice);
   cudaError_t err = cudaFuncSetAttribute(
-      pipeline_kernel<PIPELINED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+      pipeline_kernel<kPingPong>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      S::kSmem);
   if (err != cudaSuccess) return int(err);
-  int device = 0, sms = 0;
-  err = cudaGetDevice(&device);
+  transpose_kernel<bf16><<<dim3(N / 32, K / 32), 256, 0, stream>>>(w, wT, K,
+                                                                   N);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return int(err);
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return int(err);
-  const int tiles = (p.R / kBM) * (p.N / kBN);
-  const int grid = tiles < sms ? tiles : sms;
-  pipeline_kernel<PIPELINED>
-      <<<grid, PIPELINED ? kMmaThreads + kEpiThreads : kMmaThreads, smem,
-         stream>>>(p);
+  const int tiles = (R / kBM) * ((N + S::kBN - 1) / S::kBN);
+  pipeline_kernel<kPingPong>
+      <<<tiles < sms ? tiles : sms, kThreads, S::kSmem, stream>>>(args);
   return int(cudaGetLastError());
 }
 
@@ -221,17 +272,21 @@ int launch(const Problem& p, cudaStream_t stream) {
 extern "C" {
 
 // Launches on `stream`; returns the cudaError_t of the launch (0 = queued).
-// a [R, K], w [K, N], out [R, N], bf16, row-major. R and N must be multiples
-// of 128 and K of 64; else cudaErrorInvalidValue.
+// a [R, K], w [K, N], out [R, N] and the scratch wT [N, K], bf16,
+// row-major. R and N must be multiples of 128 and K of 64; else
+// cudaErrorInvalidValue.
 int probe_pipeline(int pipelined, const void* a, const void* w, void* out,
-                   int R, int K, int N, void* stream) {
-  if (R < kBM || R % kBM != 0 || N < kBN || N % kBN != 0 || K < kBK ||
-      K % kBK != 0)
+                   void* wT, int R, int K, int N, void* stream) {
+  if (R < kBM || R % kBM != 0 || N < 128 || N % 128 != 0 || K < kBK ||
+      K % kBK != 0 || wT == nullptr)
     return int(cudaErrorInvalidValue);
-  Problem p{static_cast<const bf16*>(a), static_cast<const bf16*>(w),
-            static_cast<bf16*>(out), R, K, N};
+  const bf16* a_ = static_cast<const bf16*>(a);
+  const bf16* w_ = static_cast<const bf16*>(w);
+  bf16* out_ = static_cast<bf16*>(out);
+  bf16* wT_ = static_cast<bf16*>(wT);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return pipelined ? launch<true>(p, s) : launch<false>(p, s);
+  return pipelined ? launch<true>(a_, w_, out_, wT_, R, K, N, s)
+                   : launch<false>(a_, w_, out_, wT_, R, K, N, s);
 }
 
 const char* probe_pipeline_error_string(int code) {

@@ -60,30 +60,33 @@ def gather_nodes(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def egcl_knn_edges_reference(am_i, ax_i, h, x, idx, edge_mask, wm_j, wx_j,
                              w_dm, w_dx, w2m, b2m, wa, ba, w2x, b2x, wx3,
-                             bx3):
+                             bx3, targets: slice = slice(None)):
     """Plain float32 statement of the kernel's math (materialises the
-    ``[B, N, K, F]`` edge tensors), as ``_edge_math_sparse`` states it.
-    Returns (m_sum [B,N,Fm], x_out [B,N,3])."""
+    ``[B, T, K, F]`` edge tensors), as ``_edge_math_sparse`` states it, for
+    the targets ``i`` in ``targets`` (all by default). Returns
+    (m_sum [B,T,Fm], x_out [B,T,3])."""
     f32 = torch.float32
     am_i, ax_i, h, x = (v.to(f32) for v in (am_i, ax_i, h, x))
-    h_j = gather_nodes(h, idx)                               # [B,N,K,H]
+    idx = idx[:, targets]
+    h_j = gather_nodes(h, idx)                               # [B,T,K,H]
     x_j = gather_nodes(x, idx)
-    diff = x[:, :, None, :] - x_j
-    d2 = (diff * diff).sum(dim=-1, keepdim=True)             # [B,N,K,1]
-    em = edge_mask[..., None].to(f32)
+    x_i = x[:, targets]
+    diff = x_i[:, :, None, :] - x_j
+    d2 = (diff * diff).sum(dim=-1, keepdim=True)             # [B,T,K,1]
+    em = edge_mask[:, targets, :, None].to(f32)
 
-    pre_m = am_i[:, :, None, :] + h_j @ wm_j.to(f32) + d2 * w_dm.to(f32)
+    pre_m = am_i[:, targets, None, :] + h_j @ wm_j.to(f32) + d2 * w_dm.to(f32)
     m = F.silu(F.silu(pre_m) @ w2m.to(f32) + b2m.to(f32))
     att = torch.sigmoid(m @ wa.to(f32) + ba.to(f32))
-    m_sum = (m * att * em).sum(dim=2)                        # [B,N,Fm]
+    m_sum = (m * att * em).sum(dim=2)                        # [B,T,Fm]
 
-    pre_x = ax_i[:, :, None, :] + h_j @ wx_j.to(f32) + d2 * w_dx.to(f32)
+    pre_x = ax_i[:, targets, None, :] + h_j @ wx_j.to(f32) + d2 * w_dx.to(f32)
     u = F.silu(F.silu(pre_x) @ w2x.to(f32) + b2x.to(f32))
-    s = u @ wx3.to(f32) + bx3.to(f32)                        # [B,N,K,1]
+    s = u @ wx3.to(f32) + bx3.to(f32)                        # [B,T,K,1]
     norm = torch.sqrt(torch.where(em > 0, d2.clamp_min(1e-12),
                                   torch.ones_like(d2)))
     upd = diff * s / (norm + 1.0) * em
-    return m_sum, x + upd.sum(dim=2)
+    return m_sum, x_i + upd.sum(dim=2)
 
 
 def edge_tiles(idx, edge_mask) -> _tiles.EdgeTiles:

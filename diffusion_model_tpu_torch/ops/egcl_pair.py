@@ -52,30 +52,34 @@ MAX_F1 = 1024   # first-layer width of the bf16 kernel (csrc kMaxF1)
 
 
 def egcl_pair_edges_reference(am_i, am_j, ax_i, ax_j, x, mask, w_dm, w_dx,
-                              w2m, b2m, wa, ba, w2x, b2x, wx3, bx3):
+                              w2m, b2m, wa, ba, w2x, b2x, wx3, bx3,
+                              targets: slice = slice(None)):
     """Plain float32 statement of the kernel's math (materialises the
-    ``[B, N, N, F]`` edge tensors). Returns (m_sum [B,N,Fm], x_out [B,N,3])."""
+    ``[B, T, N, F]`` edge tensors) for the targets ``i`` in ``targets`` (all
+    by default). Returns (m_sum [B,T,Fm], x_out [B,T,3])."""
     f32 = torch.float32
     am_i, am_j, ax_i, ax_j, x = (v.to(f32) for v in (am_i, am_j, ax_i, ax_j, x))
     n = am_i.shape[1]
-    diff = x[:, :, None, :] - x[:, None, :, :]              # [B,N,N,3]
-    d2 = (diff * diff).sum(dim=-1, keepdim=True)            # [B,N,N,1]
+    x_i = x[:, targets]
+    diff = x_i[:, :, None, :] - x[:, None, :, :]            # [B,T,N,3]
+    d2 = (diff * diff).sum(dim=-1, keepdim=True)            # [B,T,N,1]
     m3 = mask.to(f32)                                        # [B,N,1]
-    eye = torch.eye(n, dtype=f32, device=x.device)
-    pm = m3[:, :, None, :] * m3[:, None, :, :] * (1.0 - eye)[None, :, :, None]
+    eye = torch.eye(n, dtype=f32, device=x.device)[targets]
+    pm = (m3[:, targets, None, :] * m3[:, None, :, :]
+          * (1.0 - eye)[None, :, :, None])
 
-    pre_m = am_i[:, :, None, :] + am_j[:, None, :, :] + d2 * w_dm.to(f32)
+    pre_m = am_i[:, targets, None, :] + am_j[:, None, :, :] + d2 * w_dm.to(f32)
     m = F.silu(F.silu(pre_m) @ w2m.to(f32) + b2m.to(f32))
     att = torch.sigmoid(m @ wa.to(f32) + ba.to(f32))
-    m_sum = (m * att * pm).sum(dim=2)                        # [B,N,Fm]
+    m_sum = (m * att * pm).sum(dim=2)                        # [B,T,Fm]
 
-    pre_x = ax_i[:, :, None, :] + ax_j[:, None, :, :] + d2 * w_dx.to(f32)
+    pre_x = ax_i[:, targets, None, :] + ax_j[:, None, :, :] + d2 * w_dx.to(f32)
     u = F.silu(F.silu(pre_x) @ w2x.to(f32) + b2x.to(f32))
-    s = u @ wx3.to(f32) + bx3.to(f32)                        # [B,N,N,1]
+    s = u @ wx3.to(f32) + bx3.to(f32)                        # [B,T,N,1]
     norm = torch.sqrt(torch.where(pm > 0, d2.clamp_min(1e-12),
                                   torch.ones_like(d2)))
     upd = diff * s / (norm + 1.0) * pm
-    return m_sum, x + upd.sum(dim=2)
+    return m_sum, x_i + upd.sum(dim=2)
 
 
 def edge_tiles(mask) -> _tiles.EdgeTiles:

@@ -19,18 +19,42 @@ import torch
 # operations per second by type, and bytes per second of device memory.
 PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 MEMORY_RATE = 3.35e12
+# The special-function unit (exp2, reciprocal, tanh: MUFU) of a Hopper SM
+# completes 16 operations a clock (4 a sub-partition); its rate is that times
+# the SMs times the SM clock.
+SFU_PER_CLOCK = 16
+H100_SMS = 132
 
 
-def bound(moved: int, **ops) -> dict:
+def bound(moved: int, *, sfu: int = 0, sms: int = H100_SMS,
+          sm_clock_hz: float | None = None, **ops) -> dict:
     """The least time the card could take, in ms: the largest of ``moved``
-    bytes at the memory rate and the operations ``ops[kind]`` at each
-    kind's peak (kinds run on separate units), with each of those times."""
+    bytes at the memory rate, the operations ``ops[kind]`` at each kind's
+    peak, and ``sfu`` MUFU operations at ``SFU_PER_CLOCK`` a clock on
+    ``sms`` SMs at ``sm_clock_hz`` (kinds run on separate units), with each
+    of those times. ``bound_by`` is "bytes" or "operations";
+    ``bound_kind`` names the unit ("bytes", a type of ``PEAK_OPS``, or
+    "sfu")."""
     times = {kind: n / PEAK_OPS[kind] * 1e3 for kind, n in ops.items()}
+    if sfu:
+        if not sm_clock_hz:
+            raise ValueError("an SFU bound needs the SM clock")
+        times["sfu"] = sfu / (SFU_PER_CLOCK * sms * sm_clock_hz) * 1e3
     times["bytes"] = moved / MEMORY_RATE * 1e3
     slowest = max(times, key=times.get)
     return {"bound_ms": times[slowest],
             "bound_by": "bytes" if slowest == "bytes" else "operations",
-            "bound_ms_by": times}
+            "bound_kind": slowest, "bound_ms_by": times}
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock, in Hz, as ``nvidia-smi`` reports it
+    (``clocks.max.sm``): the clock a bound assumes."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def nbytes(*tensors) -> int:

@@ -4,9 +4,12 @@ its plain PyTorch version, and the probe.
 ``overlap`` replaces ``benchmarks/probe_overlap.py:45 make_call``. Mode
 "mxu" runs the int8 chain of ``matmul_rate`` (``x <- clip((x @ w) >> 9,
 +-127)``), mode "vpu" an independent float32 chain ``y <- y * sigmoid(y) +
-0.3`` four times a link, mode "both" the two in the same loop body of the
-same warps. On this card "mxu" means the tensor cores and "vpu" the CUDA
-cores and the SFU; the names are the TPU probe's.
+0.3`` four times a link, mode "both" the two at once on the same SMs. On
+this card "mxu" means the tensor cores and "vpu" the CUDA cores and the
+special-function unit (SFU); the names are the TPU probe's. The kernel
+(``csrc/probe_overlap.cu``) is P2's int8 block chain (its launch plan,
+``matmul_rate.chain_plan``) with a side warpgroup in every block that
+carries y in registers; the mode chooses which of them works, on one grid.
 
     python -m diffusion_model_tpu_torch.probes.overlap
 
@@ -24,15 +27,16 @@ import sys
 
 import torch
 
-from diffusion_model_tpu_torch.probes import _common
+from diffusion_model_tpu_torch.probes import _common, matmul_rate
 from diffusion_model_tpu_torch.probes.matmul_rate import product, requant
 
 M, N, STEPS = 512, 1024, 256     # the TPU probe's shape and loop length
-FILL_M = 132 * 2 * 16            # rows that give every SM two blocks
+FILL_M = 132 * 2 * 16            # a card-filling M: 66 chains of 64 rows
 T_OUTER = 20                     # calls a timing covers, as on the TPU
 VPU_REPEAT = 4
 MODES = ("mxu", "vpu", "both")
-ROWS = 16                        # rows of a block; M must divide by it
+WIDTHS = (256, 512, 1024)        # N the kernel takes
+MUFU_PER_SIGMOID = 2             # ex2 and the reciprocal
 
 # Launches of the CUDA kernel in this process; only ``overlap`` adds to it,
 # right after a launch was accepted.
@@ -66,9 +70,9 @@ def _check(a, w, y, steps, mode) -> None:
     if a.dim() != 2:
         raise ValueError(f"a has shape {tuple(a.shape)}, want [M, N]")
     m, n = a.shape
-    if n not in (256, 512, 1024) or m % ROWS:
-        raise ValueError(f"kernel takes N in (256, 512, 1024) and M in "
-                         f"multiples of {ROWS}; got M={m}, N={n}")
+    if n not in WIDTHS or m < 1:
+        raise ValueError(f"kernel takes N in {WIDTHS} and M >= 1; got M={m}, "
+                         f"N={n}")
     if not isinstance(steps, int) or steps < 0:
         raise ValueError(f"steps must be an int >= 0, got {steps!r}")
     for name, t, dtype, shape in (("a", a, torch.int8, (m, n)),
@@ -80,15 +84,38 @@ def _check(a, w, y, steps, mode) -> None:
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    return _common.load_library(
+    lib = _common.load_library(
         _SOURCE, _ENTRY,
-        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-        + [ctypes.c_void_p])
+        [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+        + [ctypes.c_void_p] * 2)
+    lib.probe_overlap_active_clusters.argtypes = [ctypes.c_int] * 3
+    lib.probe_overlap_active_clusters.restype = ctypes.c_int
+    return lib
 
 
 def build() -> None:
     """Compile and load the kernel library now (else at the first launch)."""
     _library()
+
+
+@functools.cache
+def _card_active(cluster: int, ns: int, smem: int) -> int:
+    """Clusters of this shape the card holds at once, for this kernel."""
+    return _library().probe_overlap_active_clusters(ns, cluster, smem)
+
+
+def card_plan(m: int, n: int = N) -> dict:
+    """The launch plan of ``overlap``: P2's rule for an int8 block chain
+    (``matmul_rate.chain_plan``), with the card's answer for this kernel."""
+    return matmul_rate.chain_plan(m, n, torch.int8, "block",
+                                  active=_card_active)
+
+
+def held_sms(plan: dict) -> int:
+    """SMs a launch of ``plan`` holds at once: its blocks, or as many as
+    the card holds clusters of at once (one block an SM)."""
+    cluster = plan["chains"] * plan["cs"]
+    return min(plan["blocks"], plan["active_clusters"] * cluster)
 
 
 def overlap(a, w, y, steps: int = STEPS, mode: str = "both"):
@@ -110,19 +137,34 @@ def overlap(a, w, y, steps: int = STEPS, mode: str = "both"):
         return overlap_reference(a, w, y, steps, mode)
     if a.device.type != "cuda":
         raise ValueError(f"no overlap kernel for device {a.device}")
+    return _launch(a, w, y, steps, mode)[:2]
+
+
+def _launch(a, w, y, steps, mode):
+    """Check, plan, launch, count, and hold the kernel's plan to
+    ``card_plan``; returns (x, y, the plan with ``active_clusters``)."""
+    global probe_overlap_launches
     _check(a, w, y, steps, mode)
     m, n = a.shape
-    x_out = torch.empty_like(a)
-    y_out = torch.empty_like(y)
-    lib = _library()
+    keys = matmul_rate.PLAN_KEYS
     with torch.cuda.device(a.device):
+        lib = _library()
+        want = card_plan(m, n)
+        x_out = torch.empty_like(a)
+        y_out = torch.empty_like(y)
+        wt = torch.empty_like(w)           # w transposed, the kernel's scratch
+        used = (ctypes.c_int * (len(keys) + 1))()
         rc = lib.probe_overlap(
-            MODES.index(mode), a.data_ptr(), w.data_ptr(), y.data_ptr(),
-            x_out.data_ptr(), y_out.data_ptr(), m, n, steps,
-            _common.stream_of(a.device))
+            MODES.index(mode), a.data_ptr(), w.data_ptr(), wt.data_ptr(),
+            y.data_ptr(), x_out.data_ptr(), y_out.data_ptr(), m, n, steps,
+            ctypes.addressof(used), _common.stream_of(a.device))
     _common.raise_on(rc, lib, _ENTRY)
     probe_overlap_launches += 1
-    return x_out, y_out
+    got = dict(zip(keys, used))
+    if got != want:
+        raise RuntimeError(f"{_ENTRY} used the plan {got}, chain_plan says "
+                           f"{want}")
+    return x_out, y_out, got | {"active_clusters": used[len(keys)]}
 
 
 def make_inputs(m: int, n: int, device, seed: int = 0) -> tuple:
@@ -134,20 +176,21 @@ def make_inputs(m: int, n: int, device, seed: int = 0) -> tuple:
     return a.to(device), w.to(device), y.to(device)
 
 
-def check_on_card(device, short: int = 3) -> list:
-    """Each mode against the plain version at M = 512: x bit for bit over
-    ``short`` links and over the full loop, y within rtol 1e-5 over
-    ``short`` links and finite over the full loop. Raises on any miss."""
-    a, w, y = make_inputs(M, N, device)
+def check_on_card(device, short: int = 3, ms=(M, FILL_M)) -> list:
+    """Each mode against the plain version at every M that ``measure``
+    times: x bit for bit over ``short`` links and over the full loop, y
+    within rtol 1e-5 over ``short`` links and finite over the full loop.
+    Raises on any miss."""
     records = []
-    for mode in MODES:
+    for m, mode in ((m, mode) for m in ms for mode in MODES):
+        a, w, y = make_inputs(m, N, device)
         for steps in (short, STEPS):
             got_x, got_y = overlap(a, w, y, steps, mode)
             want_x, want_y = overlap_reference(a, w, y, steps, mode)
             torch.cuda.synchronize()
             x_err = float((got_x.float() - want_x.float()).abs().max())
             y_err = float((got_y - want_y).abs().max())
-            rec = {"mode": mode, "steps": steps,
+            rec = {"mode": mode, "m": m, "steps": steps,
                    "x_mismatches": int((got_x != want_x).sum()),
                    "y_max_abs_err": y_err, "max_abs_err": max(x_err, y_err),
                    "y_finite": bool(torch.isfinite(got_y).all())}
@@ -162,11 +205,18 @@ def check_on_card(device, short: int = 3) -> list:
     return records
 
 
+def sfu_ops(m: int, n: int = N, steps: int = STEPS) -> int:
+    """MUFU operations of the y chain: two a sigmoid."""
+    return MUFU_PER_SIGMOID * VPU_REPEAT * m * n * steps
+
+
 def measure(device, reps: int = T_OUTER,
             shapes=(("tpu", M), ("card_filling", FILL_M))) -> list:
     """Per shape: ms per call of each mode (CUDA events, mean of ``reps``
     after a warm-up), the TPU probe's t_* (seconds of T_OUTER calls), the
-    overlap fraction and the bound of mode "both"."""
+    overlap fraction, the plan, the bound of mode "both" (over the card)
+    and the SFU's time on the SMs the plan holds, beside vpu's."""
+    clock = _common.sm_clock_hz()
     records = []
     for shape, m in shapes:
         a, w, y = make_inputs(m, N, device)
@@ -174,18 +224,29 @@ def measure(device, reps: int = T_OUTER,
                                     reps)
               for mode in MODES}
         t_m, t_v, t_c = (ms[k] * T_OUTER / 1e3 for k in MODES)
+        plan = card_plan(m)
+        plan["active_clusters"] = _card_active(
+            plan["chains"] * plan["cs"], plan["ns"], plan["smem"])
+        sms = held_sms(plan)
+        sfu_on_plan = _common.bound(0, sfu=sfu_ops(m), sms=sms,
+                                    sm_clock_hz=clock)["bound_ms"]
         records.append({
             "shape": shape, "m": m, "steps": STEPS,
             **{f"{k}_ms": v for k, v in ms.items()},
             "t_mxu": t_m, "t_vpu": t_v, "t_both": t_c,
             "overlap_fraction": (t_m + t_v - t_c) / min(t_m, t_v),
             "note": "mxu = tensor cores, vpu = CUDA cores and SFU",
+            "plan": plan, "sms_held": sms, "sm_clock_hz": clock,
+            "sfu_ms_on_plan_sms": sfu_on_plan,
+            "vpu_over_sfu_on_plan_sms": ms["vpu"] / sfu_on_plan,
             # the bound of "both": a sigmoid link counts five float32
-            # operations (exp, add, reciprocal, multiply, add)
+            # operations (exp, add, reciprocal, multiply, add) and two
+            # MUFU ones
             **_common.bound(
                 2 * _common.nbytes(a, y) + _common.nbytes(w),
                 int8=2 * m * N * N * STEPS,
-                f32=5 * VPU_REPEAT * m * N * STEPS)})
+                f32=5 * VPU_REPEAT * m * N * STEPS, sfu=sfu_ops(m),
+                sm_clock_hz=clock)})
     return records
 
 

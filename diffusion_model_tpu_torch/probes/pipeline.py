@@ -5,9 +5,11 @@ CUDA kernel, its plain PyTorch version, and the probe.
 (``schedule="seq"``) and ``:66 make_pipelined``
 (``schedule="pipelined"``): ``bf16(silu(a @ w))`` at the flagship EGCL's
 second-layer shape, a ``[36864, 1024]`` and w ``[1024, 1024]`` in bf16,
-float32 accumulation. In ``seq`` a block finishes a tile's product, then
-its epilogue; in ``pipelined`` dedicated warps run tile c's SiLU and store
-while the product warps compute tile c+1.
+float32 accumulation. The kernel (``csrc/probe_pipeline.cu``) is a
+persistent grid of TMA-fed wgmma with the SiLU on the accumulators and TMA
+stores. In ``seq`` its two consumer warpgroups share a tile and run its
+epilogue after its products; in ``pipelined`` they take alternate tiles, so
+one warpgroup's SiLU and stores overlap the other's products.
 
     python -m diffusion_model_tpu_torch.probes.pipeline
 
@@ -66,7 +68,7 @@ def _check(a, w, schedule) -> None:
 def _library() -> ctypes.CDLL:
     return _common.load_library(
         _SOURCE, _ENTRY,
-        [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+        [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
         + [ctypes.c_void_p])
 
 
@@ -89,11 +91,12 @@ def silu_product(a: torch.Tensor, w: torch.Tensor,
     r, k = a.shape
     n = w.shape[1]
     out = torch.empty((r, n), dtype=torch.bfloat16, device=a.device)
+    wt = torch.empty((n, k), dtype=torch.bfloat16, device=a.device)  # w^T
     lib = _library()
     with torch.cuda.device(a.device):
         rc = lib.probe_pipeline(int(schedule == "pipelined"), a.data_ptr(),
-                                w.data_ptr(), out.data_ptr(), r, k, n,
-                                _common.stream_of(a.device))
+                                w.data_ptr(), out.data_ptr(), wt.data_ptr(),
+                                r, k, n, _common.stream_of(a.device))
     _common.raise_on(rc, lib, _ENTRY)
     probe_pipeline_launches += 1
     return out
@@ -135,7 +138,8 @@ def check_on_card(device) -> list:
 def measure(device, reps: int = T_OUTER) -> dict:
     """ms per call (CUDA events, mean of ``reps`` after a warm-up) of the
     library call and both schedules, the TPU probe's verdict, and the
-    card's bound."""
+    card's bound: the tensor cores', beside the bytes and the epilogue's
+    MUFU operations (one tanh a value)."""
     a, w = make_inputs(ROWS, K, N, device)
     t_lib = _common.cuda_ms(lambda: library_silu_product(a, w), reps)
     t_seq = _common.cuda_ms(lambda: silu_product(a, w, "seq"), reps)
@@ -145,8 +149,10 @@ def measure(device, reps: int = T_OUTER) -> dict:
             "pipelined_vs_seq": t_pipe / t_seq,
             "verdict": ("BUILD the kernel" if t_pipe < 0.9 * t_lib
                         else "gate stays closed"),
+            "mufu_ops": ROWS * N,
             **_common.bound(_common.nbytes(a, w) + ROWS * N * 2,
-                            bf16=2 * ROWS * K * N)}
+                            bf16=2 * ROWS * K * N, sfu=ROWS * N,
+                            sm_clock_hz=_common.sm_clock_hz())}
 
 
 def main() -> int:

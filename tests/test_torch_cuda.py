@@ -11,7 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+from diffusion_model_tpu_torch.nn import egnn
 from diffusion_model_tpu_torch.ops import egcl_knn, egcl_pair
+from diffusion_model_tpu_torch.ops.edges import knn_edges
 from diffusion_model_tpu_torch.probes import (
     kernel_stages,
     matmul_rate,
@@ -336,9 +338,59 @@ def test_overlap_kernel_matches_plain(cuda_device, mode, m, n, steps):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,n,steps", [(512, 1024, 8), (100, 512, 3),
+                                       (4224, 1024, 2)])
+def test_overlap_mxu_is_the_int8_block_chain(cuda_device, m, n, steps):
+    a, w, y = overlap.make_inputs(m, n, cuda_device, seed=m)
+    got_x, got_y = overlap.overlap(a, w, y, steps, "mxu")
+    want = matmul_rate.chain(a, w, steps, "block")
+    torch.cuda.synchronize()
+    assert torch.equal(got_x, want)
+    assert torch.equal(got_y, y)
+    both_x, _ = overlap.overlap(a, w, y, steps, "both")
+    vpu_x, _ = overlap.overlap(a, w, y, steps, "vpu")
+    torch.cuda.synchronize()
+    assert torch.equal(both_x, want) and torch.equal(vpu_x, a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knn", [False, True])
+def test_tiny_widths_take_the_plain_route_on_the_card(cuda_device, knn):
+    torch.manual_seed(0)
+    hdim = 60 if knn else 12                    # 60 > MAX_H on the kNN route
+    fm = 64 if knn else 16
+    layer = egnn.EGCL(hdim, 32 if not knn else 64, fm,
+                      32 if not knn else 64, 32, hdim)
+    layer.requires_grad_(False)
+    g = torch.Generator().manual_seed(1)
+    h = torch.randn(3, 10, hdim, generator=g)
+    x = torch.randn(3, 10, 3, generator=g)
+    mask = torch.ones(3, 10)
+    mask[2, 6:] = 0
+    edges = knn_edges(x, mask, 4) if knn else None
+    want = layer(h, x, mask, edges)
+    layer.to(cuda_device)
+    card = [t.to(cuda_device) for t in (h, x, mask)]
+    route = egnn.edge_route(layer.mlp_m_dense0.kernel.shape[1],
+                            layer.mlp_x_dense0.kernel.shape[1], fm,
+                            torch.float32, hdim if knn else None)
+    assert route == "plain"
+    before = (egnn.plain_edge_calls, egcl_pair.egcl_pair_launches,
+              egcl_knn.egcl_knn_launches)
+    got = layer(*card, knn_edges(card[1], card[2], 4) if knn else None)
+    torch.cuda.synchronize()
+    assert (egnn.plain_edge_calls, egcl_pair.egcl_pair_launches,
+            egcl_knn.egcl_knn_launches) == (before[0] + 1, *before[1:])
+    scale = max(float(w.abs().max()) for w in want)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=2e-4, atol=2e-5 * scale)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("schedule", pipeline.SCHEDULES)
 @pytest.mark.parametrize("rows,k,n", [(256, 128, 256), (384, 1024, 128),
-                                      (128 * 140, 64, 128)])
+                                      (128 * 140, 64, 128),
+                                      (640, 192, 384)])   # N off a seq tile
 def test_pipeline_kernel_matches_plain(cuda_device, schedule, rows, k, n):
     a, w = pipeline.make_inputs(rows, k, n, cuda_device, seed=rows)
     before = pipeline.probe_pipeline_launches

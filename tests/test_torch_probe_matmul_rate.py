@@ -335,9 +335,12 @@ def test_plan_refuses_a_ring_the_kernel_cannot_run(max_stages):
 def test_timing_lives_in_an_instantiation_of_its_own():
     # the kernel that chain launches reads no clock: every reading hangs on
     # the template parameter, and the launch picks by the phases pointer
+    # (the kernel lives in the header P2 and P4 share)
     from diffusion_model_tpu_torch.ops import _build
-    source = (_build.CSRC / matmul_rate._SOURCE).read_text()
-    assert "template <typename T, int NS, bool Timed>" in source
+    assert '#include "chain_kernel.cuh"' in (
+        _build.CSRC / matmul_rate._SOURCE).read_text()
+    source = (_build.CSRC / "chain_kernel.cuh").read_text()
+    assert "template <typename T, int NS, bool Timed, class Side>" in source
     assert source.count("Timed && p.phases != nullptr") == 1
     kernel = source[source.index("chain_kernel(const __grid_constant__"):
                     source.index("void configure(")]

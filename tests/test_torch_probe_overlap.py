@@ -13,7 +13,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from diffusion_model_tpu_torch.probes import overlap
+from diffusion_model_tpu_torch.probes import _common, overlap
 from torch_port_fixtures import tpu_probe
 
 torch.set_num_threads(4)
@@ -82,7 +82,7 @@ def test_check_accepts_kernel_layout(mode):
 @pytest.mark.parametrize("args,mode,error", [
     (_valid(), "tensor", ValueError),                          # mode
     (_valid(n=768), "both", ValueError),                       # N not 2^k
-    (_valid(m=24), "both", ValueError),                        # M off 16
+    (_valid(m=0), "both", ValueError),                         # no rows
     ((_valid()[0], _valid()[1], _valid()[2].double()), "vpu", TypeError),
     ((_valid()[0].float(), _valid()[1], _valid()[2]), "mxu", TypeError),
     ((_valid()[0], _valid()[1][:128], _valid()[2]), "mxu", ValueError),
@@ -95,3 +95,29 @@ def test_check_refuses_what_the_kernel_does_not_take(args, mode, error):
 def test_main_without_a_card_exits_nonzero(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert overlap.main() != 0
+
+
+def test_sfu_bound_at_the_probe_shape():
+    """2 MUFU a sigmoid, 4 sigmoids a link: 1.07e9 MUFU at M = 512, 0.26
+    ms on 132 SMs at 1.98 GHz and twice that on the 64 SMs of the M = 512
+    chain plan; at that clock the SFU, not the int8 products (0.139 ms),
+    bounds mode "both"."""
+    ops = overlap.sfu_ops(512)
+    assert ops == 2 * 4 * 512 * 1024 * 256
+    card = _common.bound(0, sfu=ops, sm_clock_hz=1.98e9,
+                         int8=2 * 512 * 1024 * 1024 * 256)
+    assert card["bound_kind"] == "sfu" and card["bound_by"] == "operations"
+    assert card["bound_ms"] == pytest.approx(ops / (16 * 132 * 1.98e9) * 1e3)
+    assert 0.25 < card["bound_ms"] < 0.27
+    assert card["bound_ms_by"]["int8"] == pytest.approx(0.1389, rel=1e-3)
+    plan = _common.bound(0, sfu=ops, sms=64, sm_clock_hz=1.98e9)
+    assert plan["bound_ms"] == pytest.approx(card["bound_ms"] * 132 / 64)
+
+
+@pytest.mark.parametrize("plan,sms", [
+    (dict(chains=1, cs=8, blocks=64, active_clusters=15), 64),    # M=512
+    (dict(chains=1, cs=4, blocks=264, active_clusters=30), 120),  # M=4224
+    (dict(chains=1, cs=2, blocks=2, active_clusters=0), 0),
+])
+def test_held_sms_counts_the_blocks_the_card_holds_at_once(plan, sms):
+    assert overlap.held_sms(plan) == sms
