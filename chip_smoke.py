@@ -9,9 +9,8 @@ Phases, each printed as one JSON line:
   1. toolchain: the card (``nvidia-smi``), CUDA, nvcc, and the build of the
      six kernels from ``diffusion_model_tpu_torch/csrc/`` (both EGCL kernels
      and the four probes; one nvcc each, started together), with the
-     tensor-core instructions of each library's SASS (``cuobjdump``): K1,
-     K2, P2, P3 and P4 on warpgroup MMA (HGMMA / IGMMA) and none on HMMA /
-     IMMA;
+     tensor-core instructions of each library's SASS (``cuobjdump``): all
+     six on warpgroup MMA (HGMMA / IGMMA) and none on HMMA / IMMA;
   2. the pair kernel (K1) against its plain version at flagship width
      (F1=1024, Fm=256) on the inputs the main path gives it (B x N = 80 x 16
      and 1 x 192), float32 variant and bfloat16 variant, padded rows inert,
@@ -63,7 +62,10 @@ Phases, each printed as one JSON line:
      plan holds, the overlap fraction at M=512 and 4224), P3 SiLU(a @ w)
      with and without an overlapped epilogue (``probes.pipeline``: TMA-fed
      wgmma, cooperative and ping-pong, beside ``F.silu(a @ w)``), P1 the
-     int8 EGCL edge tile in stages at N=192 (``probes.kernel_stages``).
+     int8 EGCL edge tile in stages at N=192 (``probes.kernel_stages``:
+     TMA-fed wgmma in clusters of two sharing W by multicast; every mode
+     twice bit for bit, padded targets inert, each mode beside the product
+     alone through ``torch._int_mm`` / ``q @ w``).
 
 Any failed check raises, and the script exits non-zero without its result
 line. The last lines are the kernel table (with each kernel's bound: its
@@ -1002,30 +1004,46 @@ def phase_pipeline(device, card: str) -> dict:
 
 def phase_kernel_stages(device, card: str) -> dict:
     """P1: every stage and x-branch variant against its plain version at
-    N = 192 (int32 products bit for bit through the checksum), then ms per
-    layer call of each."""
+    N = 192 (int32 products bit for bit through the checksum, each mode
+    twice bit for bit), padded targets inert, then ms per layer call of
+    each beside the product alone through one PyTorch call, and the
+    targets the redesign was held to (logged, not asserted)."""
     from diffusion_model_tpu_torch.probes import kernel_stages as ks
 
     table = ks.variants(device)
     checks = ks.check_on_card(table)
+    padded = ks.check_padded(device)
     plain_ms = {name: cuda_ms(calls["plain"], 3)
                 for name, calls in table.items()}
     ks.probe_kernel_stages_launches = 0
     timings = ks.measure(table, reps=20)
     launches = ks.probe_kernel_stages_launches
     ms = {r["mode"]: r["ms_per_layer_call"] for r in timings}
+    library = {r["mode"]: r["library_ms"] for r in timings}
     log({"phase": "probe_kernel_stages", "card": card, "n": ks.N,
-         "checks": checks, "timings": timings, "plain_ms": plain_ms,
-         "launches": launches,
+         "tile_rows": ks.TILE_ROWS, "cluster": ks.CLUSTER,
+         "blocks": ks.grid(1, ks.N, ks.active_clusters(0, 0, True, ks.F1)),
+         "checks": checks, "padded": padded, "timings": timings,
+         "plain_ms": plain_ms, "launches": launches,
+         "library": "the product alone: torch._int_mm (int8, both products "
+                    "for the stages) or q @ w (bf16), no epilogue",
          "epilogue_share_of_mm_post": 1 - ms["mm"] / ms["mm_post"],
          "build_share_of_full_serial": 1 - ms["mm_post"] / ms["full_serial"],
-         "int8_over_bf16_x": ms["x8"] / ms["xbf"]})
+         "int8_over_bf16_x": ms["x8"] / ms["xbf"],
+         "targets": {
+             "mm <= 0.15 ms": ms["mm"] <= 0.15,
+             "x8 <= 0.12 ms": ms["x8"] <= 0.12,
+             "xbf <= 0.16 ms": ms["xbf"] <= 0.16,
+             "x8 / xbf <= 0.7": ms["x8"] / ms["xbf"] <= 0.7,
+             "mm <= 1.25 x library": ms["mm"] <= 1.25 * library["mm"],
+             "x8 <= 1.25 x library": ms["x8"] <= 1.25 * library["x8"],
+             "xbf <= 1.25 x library": ms["xbf"] <= 1.25 * library["xbf"]}})
     return probe_kernel(
         "probe_kernel_stages", "probe_kernel_stages.cu",
         "benchmarks/probe_kernel_stages.py:126", launches,
         max_abs_err=max(r["max_abs_err"] for r in checks),
-        ms=ms["mm"], plain_ms=plain_ms["mm"], library_ms=None, stages_ms=ms,
-        **table["mm"]["bound"])
+        ms=ms["mm"], plain_ms=plain_ms["mm"], library_ms=library["mm"],
+        stages_ms=ms, stages_library_ms=library, **table["mm"]["bound"])
 
 
 def main() -> int:
@@ -1067,9 +1085,7 @@ def main() -> int:
     log({"phase": "toolchain", "nvidia_smi": card,
          "torch": torch.__version__, "torch_cuda": torch.version.cuda,
          "nvcc": _build.find_nvcc(), "kernel_build_s": build_s,
-         "sass": check_sass([m._SOURCE for m in (egcl_pair, egcl_knn,
-                                                 matmul_rate, overlap,
-                                                 pipeline)])})
+         "sass": check_sass([m._SOURCE for m in modules])})
 
     cfg = load_config_npz(str(SNAPSHOT))
     params = load_params_npz(str(SNAPSHOT))

@@ -22,11 +22,18 @@ returns ``check [B, N]``: the wrapping int32 sum (float32 for bf16) of every
 product entry of target i's edges, which the kernel writes so that no
 product column is dead code; int32 stages match bit for bit.
 
+The kernel (``csrc/probe_kernel_stages.cu``) walks the B N N edge rows
+flattened, in tiles of ``TILE_ROWS``, on a persistent grid of clusters of
+two blocks that share W by TMA multicast; ``grid`` sizes that grid from
+the clusters the card holds at once, and the kernel's library states the
+scratch a launch needs (``probe_stages_scratch_bytes``).
+
     python -m diffusion_model_tpu_torch.probes.kernel_stages [mode ...]
 
 prints one line per mode (mm mm_post full_serial x8 xbf xblk8 xblkbf) with
-ms per layer call and TOP/s, as the TPU probe did. It needs a CUDA card and
-exits non-zero without one.
+ms per layer call and TOP/s, as the TPU probe did, beside the product alone
+through one PyTorch call (``library``). It needs a CUDA card and exits
+non-zero without one.
 """
 
 from __future__ import annotations
@@ -55,10 +62,43 @@ _SOURCE = "probe_kernel_stages.cu"
 _ENTRY = "probe_stages"
 _BF = torch.bfloat16
 
+TILE_ROWS = 128      # edge rows of a tile
+CLUSTER = 2          # blocks of a cluster, one tile of a pair each
+MAX_BUILD_F1 = 1024  # full_serial keeps a tile's int8 rows in shared memory
+
 
 def mxu_ops(n: int = N, f1: int = F1, fm: int = FM) -> int:
     """Tensor-core operations of one edge_stage call."""
     return 2 * n * n * (f1 * f1 + f1 * fm)
+
+
+def tile_count(b: int, n: int) -> int:
+    """Tiles of ``TILE_ROWS`` over the B N N flattened edge rows."""
+    return -(-b * n * n // TILE_ROWS)
+
+
+def grid(b: int, n: int, active: int) -> int:
+    """Blocks of the persistent grid: a cluster a tile pair, at most the
+    ``active`` clusters the card holds at once."""
+    if active < 1:
+        raise ValueError(f"the card holds {active} clusters of {CLUSTER}")
+    pairs = -(-tile_count(b, n) // CLUSTER)
+    return CLUSTER * min(active, pairs)
+
+
+def sfu_ops(mode: str, b: int = B, n: int = N, f1: int = F1,
+            fm: int = FM) -> int:
+    """MUFU operations of one call, from the kernel's instructions: one
+    ``tanh.approx`` a SiLU of the epilogues (every om and ox value of
+    mm_post and full_serial, every product of xblk); a row's gate (ex2 and
+    a reciprocal, in each of the quad's four lanes), norm (rsqrt) and
+    division (a reciprocal) in mm_post and full_serial; ex2 and a
+    reciprocal a value of full_serial's build (both branches)."""
+    e = b * n * n
+    kind = mode if mode in MODES else X_MODES[mode][0]
+    post = e * (fm + f1) + e * (4 * 2 + 2)
+    return {"mm": 0, "x": 0, "xblk": e * f1, "mm_post": post,
+            "full_serial": post + 2 * 2 * e * f1}[kind]
 
 
 def _bf(v: torch.Tensor) -> torch.Tensor:
@@ -166,13 +206,16 @@ _STAGE_NAMES = ("am_i", "am_j", "ax_i", "ax_j", "x", "mask", "qm", "qx",
                 "w_dm", "w_dx", "w2m_q", "w2x_q", "wx3", "wa")
 
 
-def _check_stage(args: dict) -> None:
+def _check_stage(args: dict, mode: str = "mm") -> None:
     """Raise on anything the stage kernel does not take."""
     b, n, f1 = args["am_i"].shape
     fm = args["w2m_q"].shape[-1]
     if f1 % 256 or fm != 256:
         raise ValueError(f"kernel takes F1 in multiples of 256 and FM = "
                          f"256; got F1={f1}, FM={fm}")
+    if mode == "full_serial" and f1 > MAX_BUILD_F1:
+        raise ValueError(f"full_serial builds a tile's rows in shared "
+                         f"memory: F1 at most {MAX_BUILD_F1}; got {f1}")
     want = {"am_i": (_BF, (b, n, f1)), "am_j": (_BF, (b, n, f1)),
             "ax_i": (_BF, (b, n, f1)), "ax_j": (_BF, (b, n, f1)),
             "x": (torch.float32, (b, n, 3)),
@@ -210,10 +253,23 @@ def _check_x(q, w, wx3=None) -> None:
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    return _common.load_library(
+    lib = _common.load_library(
         _SOURCE, _ENTRY,
-        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4
-        + [ctypes.c_void_p])
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 18 + [ctypes.c_longlong]
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.probe_stages_active_clusters.argtypes = [ctypes.c_int] * 3
+    lib.probe_stages_active_clusters.restype = ctypes.c_int
+    lib.probe_stages_scratch_bytes.argtypes = [ctypes.c_int] * 6
+    lib.probe_stages_scratch_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+@functools.cache
+def active_clusters(device_index: int, code: int, int8: bool,
+                    f1: int) -> int:
+    """Clusters of two the card holds at once for this mode's kernel."""
+    with torch.cuda.device(device_index):
+        return _library().probe_stages_active_clusters(code, int(int8), f1)
 
 
 def build() -> None:
@@ -227,11 +283,16 @@ def _launch(mode: str, int8: bool, ptrs: dict, outs: tuple, b: int, n: int,
     lib = _library()
     args = [None if ptrs.get(k) is None else ptrs[k].data_ptr()
             for k in _STAGE_NAMES]
+    code = _MODE_CODE[mode]
+    blocks = grid(b, n, active_clusters(device.index or 0, code, int8, f1))
+    size = lib.probe_stages_scratch_bytes(code, int(int8), b, n, f1, fm)
+    scratch = torch.empty(size, dtype=torch.uint8, device=device)
     with torch.cuda.device(device):
-        rc = lib.probe_stages(_MODE_CODE[mode], int(int8), *args,
+        rc = lib.probe_stages(code, int(int8), *args,
                               *(None if o is None else o.data_ptr()
                                 for o in outs),
-                              b, n, f1, fm, _common.stream_of(device))
+                              scratch.data_ptr(), size, b, n, f1, fm, blocks,
+                              _common.stream_of(device))
     _common.raise_on(rc, lib, _ENTRY)
     probe_kernel_stages_launches += 1
 
@@ -262,7 +323,7 @@ def edge_stage(mode, am_i, am_j, ax_i, ax_j, x, mask, qm, qx, w_dm, w_dx,
     if am_i.device.type == "cpu":
         return edge_stage_reference(mode, *args.values())
     _device_or_raise(am_i)
-    _check_stage(args)
+    _check_stage(args, mode)
     b, n, f1 = am_i.shape
     fm = w2m_q.shape[-1]
     m_sum = torch.empty((b, n, fm), dtype=torch.float32, device=am_i.device)
@@ -343,12 +404,36 @@ def make_x_inputs(dtype, device, n: int = N, f1: int = F1,
     return q, w, wx3
 
 
+def library_call(mode: str, inputs: dict):
+    """The product alone (no epilogue) through one PyTorch call a product,
+    at this mode's shapes: ``torch._int_mm`` (cuBLAS) for int8, both
+    products for the stages, with w laid out column-major beforehand (its
+    int8 kernels run several times slower on a row-major w); ``q @ w`` for
+    bf16. A yardstick of speed, called by no port code."""
+    def col_major(w):
+        return w.t().contiguous().t()
+
+    if mode in MODES:
+        f1 = inputs["w2m_q"].shape[0]
+        qm, qx = (inputs[k].reshape(-1, f1) for k in ("qm", "qx"))
+        wm, wx = col_major(inputs["w2m_q"]), col_major(inputs["w2x_q"])
+        return lambda: (torch._int_mm(qm, wm), torch._int_mm(qx, wx))
+    q, w = inputs["q"], inputs["w"]
+    q2 = q.reshape(-1, q.shape[-1])
+    if q.dtype == torch.int8:
+        wc = col_major(w)
+        return lambda: torch._int_mm(q2, wc)
+    return lambda: q2 @ w
+
+
 def variants(device, n: int = N) -> dict:
-    """name -> {"kernel", "plain": calls on the probe's inputs, "ops": its
-    tensor-core operations, "bound": the card's bound for the call} for
-    every mode the probe times."""
+    """name -> {"kernel", "plain", "library": calls on the probe's inputs,
+    "ops": its tensor-core operations, "bound": the card's bound for the
+    call (operations, bytes and, where the mode has SiLUs, the SFU at the
+    card's highest clock)} for every mode the probe times."""
     args = make_inputs(device, n)
     f1, fm = args["w2m_q"].shape
+    clock = _common.sm_clock_hz()
     reads = {"mm": ("qm", "qx", "w2m_q", "w2x_q"),
              "mm_post": ("x", "mask", "qm", "qx", "w2m_q", "w2x_q", "wx3",
                          "wa"),
@@ -362,8 +447,11 @@ def variants(device, n: int = N) -> dict:
             "kernel": functools.partial(edge_stage, mode, **args),
             "plain": functools.partial(edge_stage_reference, mode,
                                        *args.values()),
+            "library": library_call(mode, args),
             "ops": mxu_ops(n, f1, fm),
-            "bound": _common.bound(moved, int8=mxu_ops(n, f1, fm))}
+            "bound": _common.bound(moved, int8=mxu_ops(n, f1, fm),
+                                   sfu=sfu_ops(mode, B, n, f1, fm),
+                                   sm_clock_hz=clock)}
     for name, (kind, dtype) in X_MODES.items():
         q, w, wx3 = make_x_inputs(dtype, device, n)
         call, plain = ((x_branch, x_branch_reference) if kind == "x" else
@@ -373,23 +461,29 @@ def variants(device, n: int = N) -> dict:
         ops = {"int8" if dtype == torch.int8 else "bf16": 2 * n * n * f1 * f1}
         out[name] = {"kernel": functools.partial(call, *inputs),
                      "plain": functools.partial(plain, *inputs),
+                     "library": library_call(name, {"q": q, "w": w}),
                      "ops": 2 * n * n * f1 * f1,
-                     "bound": _common.bound(moved, **ops)}
+                     "bound": _common.bound(
+                         moved, sfu=sfu_ops(name, B, n, f1), sm_clock_hz=clock,
+                         **ops)}
     return out
 
 
 def check_on_card(table: dict) -> list:
     """Each mode against its plain version: the outputs within relative L2
-    1e-2, and the checksum of the int32 products bit for bit (of the
-    float32 products within relative 1e-3). full_serial's checksum is
-    reported only: its int8 rows round silu(pre) * 32, where the kernel's
-    and PyTorch's exp may part at a half. Raises on a miss."""
+    1e-5 for mm (the same bf16 summands in another order) and 1e-2 for the
+    others, the checksum of the int32 products bit for bit (of the float32
+    products within relative 1e-3), and a second launch bit for bit the
+    first. full_serial's checksum is reported only: its int8 rows round
+    silu(pre) * 32, where the kernel's and PyTorch's exp may part at a
+    half. Raises on a miss."""
     records = []
     for name, calls in table.items():
-        got, want = calls["kernel"](), calls["plain"]()
+        got, again, want = calls["kernel"](), calls["kernel"](), calls["plain"]()
         torch.cuda.synchronize()
         rec = {"mode": name, "max_abs_err": max(
-            float((g - w).abs().max()) for g, w in zip(got[:-1], want[:-1]))}
+            float((g - w).abs().max()) for g, w in zip(got[:-1], want[:-1])),
+            "repeatable": all(torch.equal(g, a) for g, a in zip(got, again))}
         for what, g, w in zip(("m_sum", "x_out") if len(got) == 3
                               else ("x_out",), got[:-1], want[:-1]):
             rec[f"rel_l2_{what}"] = _common.rel_l2(g, w)
@@ -402,22 +496,53 @@ def check_on_card(table: dict) -> list:
             err = (got[-1] - want[-1]).abs().max() / want[-1].abs().max()
             rec["check_rel"] = float(err)
             ok_check = rec["check_rel"] <= 1e-3
+        rec["limit_rel_l2"] = 1e-5 if name == "mm" else 1e-2
         records.append(rec)
         rels = [v for k, v in rec.items() if k.startswith("rel_l2")]
         finite = all(v for k, v in rec.items() if k.startswith("finite"))
-        if not (ok_check and finite and max(rels) <= 1e-2):
+        if not (ok_check and finite and rec["repeatable"]
+                and max(rels) <= rec["limit_rel_l2"]):
             raise AssertionError(f"kernel stage off its plain version: {rec}")
     return records
 
 
+def check_padded(device) -> list:
+    """mm_post and full_serial at N with the last 5 targets masked: their
+    m_sum and x_out rows exactly zero, the rest within relative L2 1e-2 of
+    the plain version. Raises on a miss."""
+    padded = 5
+    args = make_inputs(device, seed=3)
+    args["mask"][:, N - padded:] = 0.0
+    records = []
+    for mode in ("mm_post", "full_serial"):
+        got = edge_stage(mode, **args)
+        want = edge_stage_reference(mode, *args.values())
+        torch.cuda.synchronize()
+        rec = {"mode": mode, "padded_targets": padded,
+               "padded_nonzero": int(sum(
+                   int((g[:, N - padded:] != 0).sum()) for g in got[:2])),
+               "rel_l2": max(_common.rel_l2(g, w)
+                             for g, w in zip(got[:2], want[:2]))}
+        records.append(rec)
+        if rec["padded_nonzero"] or not rec["rel_l2"] <= 1e-2:
+            raise AssertionError(f"padded targets not inert: {rec}")
+    return records
+
+
 def measure(table: dict, reps: int = T_CALLS) -> list:
-    """ms per layer call of each mode (CUDA events, mean of ``reps`` after
-    a warm-up), its TOP/s, and the card's bound for the call."""
+    """ms per layer call of each mode on the card (the mean of ``reps``
+    calls between CUDA events: W's transpose, the counters' reset and the
+    stage kernel of each), its TOP/s, the card's bound for the call, and
+    the product alone through one PyTorch call timed the same way
+    (``library_ms``, no epilogue)."""
     records = []
     for name, calls in table.items():
         ms = _common.cuda_ms(calls["kernel"], reps)
+        library_ms = _common.cuda_ms(calls["library"], reps)
         rec = {"mode": name, "ms_per_layer_call": ms,
-               "tops": calls["ops"] / ms / 1e9, **calls["bound"]}
+               "tops": calls["ops"] / ms / 1e9, "library_ms": library_ms,
+               "over_library": ms / library_ms, **calls["bound"]}
+        rec["over_bound"] = ms / rec["bound_ms"]
         if name in MODES:
             rec["ms_per_denoiser_step_5L"] = 5 * ms
         records.append(rec)
@@ -436,10 +561,14 @@ def main(argv=None) -> int:
         return 2
     build()
     _common.emit({"devices": [torch.cuda.get_device_name(0)],
-                  "card": _common.card_line(), "n": N, "tile_edges": 64})
+                  "card": _common.card_line(), "n": N,
+                  "tile_rows": TILE_ROWS, "cluster": CLUSTER})
     table = {k: v for k, v in variants(device).items() if k in names}
     for rec in check_on_card(table):
         _common.emit({"check": rec})
+    if {"mm_post", "full_serial"} <= set(names):
+        for rec in check_padded(device):
+            _common.emit({"check_padded": rec})
     for rec in measure(table):
         _common.emit(rec)
     return 0

@@ -401,16 +401,33 @@ def test_pipeline_kernel_matches_plain(cuda_device, schedule, rows, k, n):
     assert _rel_l2(got.float(), want.float()) <= 1e-2
 
 
+def _graphs(n, f1, n_real, graphs):
+    """Stage inputs of ``graphs`` graphs (the weights of the first), the
+    targets from ``n_real`` on masked in each."""
+    per = [stage_inputs(n + g, n, f1, 256, n_real) for g in range(graphs)]
+    return {k: (np.concatenate([p[k] for p in per]) if k in _PER_GRAPH
+                else per[0][k]) for k in per[0]}
+
+
+_PER_GRAPH = ("am_i", "am_j", "ax_i", "ax_j", "x", "mask", "qm", "qx")
+
+
+# edge rows end mid-tile at every N but 64 and 192; N = 11 and 70 leave an
+# odd tile count (the last cluster's second block walks an empty tile)
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", kernel_stages.MODES)
-@pytest.mark.parametrize("n,f1,n_real", [(20, 256, 17), (64, 512, 64),
-                                         (70, 256, 66)])
-def test_stage_kernel_matches_plain(cuda_device, mode, n, f1, n_real):
-    args = stage_args(stage_inputs(n, n, f1, 256, n_real), cuda_device)
+@pytest.mark.parametrize("n,f1,n_real,graphs", [
+    (20, 256, 17, 1), (64, 512, 64, 1), (70, 256, 66, 1), (11, 256, 9, 1),
+    (192, 1024, 187, 2), (3, 256, 2, 3)])
+def test_stage_kernel_matches_plain(cuda_device, mode, n, f1, n_real,
+                                    graphs):
+    args = stage_args(_graphs(n, f1, n_real, graphs), cuda_device)
     before = kernel_stages.probe_kernel_stages_launches
     got = kernel_stages.edge_stage(mode, *args)
+    again = kernel_stages.edge_stage(mode, *args)
     torch.cuda.synchronize()
-    assert kernel_stages.probe_kernel_stages_launches == before + 1
+    assert kernel_stages.probe_kernel_stages_launches == before + 2
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
     want = kernel_stages.edge_stage_reference(mode, *args)
     limit = 1e-5 if mode == "mm" else 1e-2
     for g, w in zip(got[:2], want[:2]):
@@ -418,30 +435,60 @@ def test_stage_kernel_matches_plain(cuda_device, mode, n, f1, n_real):
     if mode != "full_serial":
         assert torch.equal(got[2], want[2])      # the int32 products
     if mode != "mm":
-        pad = args[5][0, :, 0] == 0
-        assert not got[0][0, pad].any() and not got[1][0, pad].any()
+        pad = args[5][..., 0] == 0
+        assert not got[0][pad].any() and not got[1][pad].any()
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("blocked", [False, True])
 @pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16])
-@pytest.mark.parametrize("n,f1", [(20, 256), (65, 512)])
+@pytest.mark.parametrize("n,f1", [(20, 256), (65, 512), (11, 256),
+                                  (192, 1024)])
 def test_x_branch_kernel_matches_plain(cuda_device, blocked, dtype, n, f1):
     q, w, wx3 = kernel_stages.make_x_inputs(dtype, cuda_device, n, f1)
     before = kernel_stages.probe_kernel_stages_launches
+    call = kernel_stages.x_branch_blocked if blocked else \
+        kernel_stages.x_branch
+    got = call(q, w, wx3) if blocked else call(q, w)
+    again = call(q, w, wx3) if blocked else call(q, w)
     if blocked:
-        got = kernel_stages.x_branch_blocked(q, w, wx3)
         want = kernel_stages.x_branch_blocked_reference(q, w, wx3)
     else:
-        got = kernel_stages.x_branch(q, w)
         want = kernel_stages.x_branch_reference(q, w)
     torch.cuda.synchronize()
-    assert kernel_stages.probe_kernel_stages_launches == before + 1
+    assert kernel_stages.probe_kernel_stages_launches == before + 2
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
     assert _rel_l2(got[0], want[0]) <= 1e-2
     if dtype == torch.int8:
         assert torch.equal(got[1], want[1])
     else:
         assert _rel_l2(got[1], want[1]) <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["mm", "x"])
+def test_stage_kernel_refuses_a_short_scratch(cuda_device, monkeypatch, mode):
+    # the library owns the scratch layout and refuses a buffer one byte
+    # short of it, before anything is written
+    lib = kernel_stages._library()
+
+    class Short:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        def probe_stages_scratch_bytes(self, *args):
+            return lib.probe_stages_scratch_bytes(*args) - 1
+
+    monkeypatch.setattr(kernel_stages, "_library", Short)
+    before = kernel_stages.probe_kernel_stages_launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        if mode == "mm":
+            args = stage_args(stage_inputs(5, 20, 256, 256, 20), cuda_device)
+            kernel_stages.edge_stage(mode, *args)
+        else:
+            kernel_stages.x_branch(*kernel_stages.make_x_inputs(
+                torch.int8, cuda_device, 20, 256)[:2])
+    assert kernel_stages.probe_kernel_stages_launches == before
 
 
 @pytest.mark.cuda

@@ -220,3 +220,63 @@ def test_check_x_refuses_what_the_kernel_does_not_take(q, w, error):
 def test_main_without_a_card_exits_nonzero(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert ks.main([]) != 0
+
+
+# --- the kernel's plan: tiles of flattened edge rows, the persistent grid ---
+
+PLAN_SHAPES = [(1, 1), (1, 5), (1, 11), (2, 16), (1, 64), (1, 128),
+               (3, 70), (1, 192), (2, 192), (1, 300)]
+
+
+@pytest.mark.parametrize("b,n", PLAN_SHAPES)
+@pytest.mark.parametrize("active", [1, 3, 66])
+def test_persistent_grid_fits_the_card_and_the_tiles(b, n, active):
+    # every edge row in a tile, no tile empty
+    tiles = ks.tile_count(b, n)
+    assert (tiles - 1) * ks.TILE_ROWS < b * n * n <= tiles * ks.TILE_ROWS
+    # clusters of two, each walking tile pairs c, c + C, ...: no more
+    # clusters than the card holds at once or than there are pairs, and
+    # as many as both allow
+    pairs = -(-tiles // ks.CLUSTER)
+    blocks = ks.grid(b, n, active)
+    assert blocks % ks.CLUSTER == 0
+    assert blocks // ks.CLUSTER == min(active, pairs)
+
+
+def test_grid_needs_a_cluster_the_card_holds():
+    with pytest.raises(ValueError, match="clusters"):
+        ks.grid(1, 192, 0)
+
+
+def test_plan_at_the_probe_shape():
+    assert ks.tile_count(1, 192) == 288
+    assert ks.grid(1, 192, 66) == 132
+    assert ks.grid(2, 192, 66) == 132
+    assert ks.grid(1, 11, 66) == 2
+
+
+def test_full_serial_refuses_rows_too_wide_for_shared_memory():
+    args = _valid_stage()
+    wide = dict(zip(STAGE_NAMES, stage_args(stage_inputs(6, 2, 1280, 256))))
+    ks._check_stage(args, "full_serial")
+    ks._check_stage(wide, "mm_post")
+    with pytest.raises(ValueError, match="full_serial"):
+        ks._check_stage(wide, "full_serial")
+
+
+@pytest.mark.parametrize("mode", [*ks.MODES, "x8", "xbf"])
+def test_library_call_is_the_product_alone(mode):
+    inputs = dict(zip(STAGE_NAMES, stage_args(stage_inputs(7, 3, 256, 256))))
+    if mode in ks.MODES:
+        got = ks.library_call(mode, inputs)()
+        want = [ks._product(inputs[q].reshape(-1, 256), inputs[w])
+                for q, w in (("qm", "w2m_q"), ("qx", "w2x_q"))]
+    else:
+        q, w, _ = ks.make_x_inputs(ks.X_MODES[mode][1], "cpu", 3, 256)
+        got = [ks.library_call(mode, {"q": q, "w": w})()]
+        want = [ks._product(q.reshape(-1, 256), w)]
+    for g, w in zip(got, want):
+        if g.dtype == torch.int32:
+            assert torch.equal(g, w)
+        else:
+            torch.testing.assert_close(g.float(), w, rtol=1e-2, atol=1e-1)
