@@ -5,6 +5,10 @@
     gen = torch.Generator(device="cuda").manual_seed(cfg.seed)
     out = generate(cfg, params, test_graphs, gen)
 
+The noise schedule is the config's (``schedule_for``): the polynomial table,
+or for ``noise_schedule="learned"`` the table of the snapshot's own gamma
+network (``params["gamma"]``).
+
 ``generate`` follows ``diffusion_model_tpu.api.generate``: conditions are
 collated in chunks of ``batch_size`` (the final chunk padded with copies of
 its last condition and trimmed after sampling, so every chunk has one
@@ -23,16 +27,24 @@ import torch
 
 from diffusion_model_tpu_torch.config import Config
 from diffusion_model_tpu_torch.data.batch import collate
-from diffusion_model_tpu_torch.diffusion.process import predefined_schedule
+from diffusion_model_tpu_torch.diffusion.process import (
+    Schedule,
+    learned_schedule,
+    predefined_schedule,
+)
 from diffusion_model_tpu_torch.diffusion.sampler import (
     NoiseSource,
     sample_with_retry,
     tile_batch,
 )
 from diffusion_model_tpu_torch.nn.denoiser import DiffusionDenoiser
+from diffusion_model_tpu_torch.nn.gamma import GammaNetwork
 from diffusion_model_tpu_torch.ops.egcl_knn import egcl_knn_edges
 from diffusion_model_tpu_torch.ops.egcl_pair import egcl_pair_edges
-from diffusion_model_tpu_torch.train.checkpoint import state_dict_from_flax
+from diffusion_model_tpu_torch.train.checkpoint import (
+    gamma_state_dict_from_flax,
+    state_dict_from_flax,
+)
 
 
 def denoiser_from_params(cfg: Config, params: dict, device,
@@ -48,13 +60,28 @@ def denoiser_from_params(cfg: Config, params: dict, device,
     return model
 
 
+def schedule_for(cfg: Config, params: dict, device) -> Schedule:
+    """The schedule table a snapshot samples with, on ``device``: the
+    polynomial one for ``noise_schedule="predefined"``, else the one of the
+    gamma network in ``params["gamma"]`` (a flax parameter tree)."""
+    if cfg.noise_schedule == "predefined":
+        return predefined_schedule(cfg, device=device)
+    if "gamma" not in params:
+        raise ValueError("noise_schedule='learned' needs the gamma network's "
+                         "parameters, params['gamma']")
+    gamma = GammaNetwork(device=device)
+    gamma.load_state_dict(gamma_state_dict_from_flax(params))
+    return learned_schedule(gamma, cfg.num_diffusion_timestep, device)
+
+
 def generate(cfg: Config, params_or_model: Union[dict, DiffusionDenoiser],
              test_graphs: list, generator: Optional[torch.Generator] = None,
              gen_num_per_spectrum: Optional[int] = None, batch_size: int = 16,
              device=None, noise: Optional[NoiseSource] = None,
              return_trajectory: bool = False, size_predictor=None,
              edge_fn: Callable = egcl_pair_edges,
-             knn_edge_fn: Callable = egcl_knn_edges) -> dict:
+             knn_edge_fn: Callable = egcl_knn_edges,
+             schedule: Optional[Schedule] = None) -> dict:
     """Sample ``gen_num_per_spectrum`` structures per test condition.
 
     Args:
@@ -68,32 +95,45 @@ def generate(cfg: Config, params_or_model: Union[dict, DiffusionDenoiser],
         error is raised, and the CPU is used only when asked for.
       noise: optional replacement source of standard-normal draws (see
         ``diffusion.sampler``).
+      return_trajectory: also return ``trajectory_pos`` ``[F, S, N, 3]``
+        and ``trajectory_h`` ``[F, S, N, A]`` over the S samples, the state
+        entering every ``cfg.snapshot_every``-th reverse step
+        (``SampleResult.trajectory``).
       edge_fn, knn_edge_fn: the edge functions of a model built from
         ``params`` (see ``denoiser_from_params``).
+      schedule: the schedule table; by default ``schedule_for(cfg,
+        params, device)``. A model whose config has a learned schedule comes
+        without its gamma network, so it needs one.
 
     Returns:
       dict of numpy arrays: ``ids`` (condition i repeated G times,
       adjacent), ``original_pos``/``original_species``/``mask`` repeated
       alike, and ``generated_pos``/``generated_species``/``generated_h``/
-      ``finite``/``accepted``.
+      ``finite``/``accepted`` (and the trajectory when asked for).
     """
     if size_predictor is not None:
         raise NotImplementedError("size_predictor is not ported yet")
-    if return_trajectory:
-        raise NotImplementedError("return_trajectory is not ported yet")
     g = gen_num_per_spectrum or cfg.gen_num_per_spectrum
     if isinstance(params_or_model, DiffusionDenoiser):
         model = params_or_model
         device = next(model.parameters()).device if device is None else device
+        if schedule is None and cfg.noise_schedule != "predefined":
+            raise ValueError(
+                f"noise_schedule={cfg.noise_schedule!r}: a model comes "
+                "without its gamma network; pass schedule=schedule_for(cfg, "
+                "params, device)")
+        params = {}
     else:
+        params = params_or_model
         if device is None:
             device = "cuda" if generator is None else generator.device
-        model = denoiser_from_params(cfg, params_or_model, device, edge_fn,
+        model = denoiser_from_params(cfg, params, device, edge_fn,
                                      knn_edge_fn)
     device = torch.device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(cfg.seed)
-    schedule = predefined_schedule(cfg, device=device)
+    if schedule is None:
+        schedule = schedule_for(cfg, params, device)
 
     outs, ids = [], []
     orig_pos, orig_species, masks = [], [], []
@@ -104,10 +144,14 @@ def generate(cfg: Config, params_or_model: Union[dict, DiffusionDenoiser],
             chunk = list(chunk) + [chunk[-1]] * (batch_size - n_real)
         cond = collate(chunk, cfg.n_max, device)
         res = sample_with_retry(model, schedule, cfg, generator,
-                                tile_batch(cond, g), noise)
+                                tile_batch(cond, g), noise, return_trajectory)
         keep = n_real * g
-        outs.append({k: getattr(res, k)[:keep].cpu().numpy()
-                     for k in ("pos", "species", "h", "finite", "accepted")})
+        out = {k: getattr(res, k)[:keep].cpu().numpy()
+               for k in ("pos", "species", "h", "finite", "accepted")}
+        if return_trajectory:
+            out["trajectory_pos"], out["trajectory_h"] = (
+                t[:, :keep].cpu().numpy() for t in res.trajectory)
+        outs.append(out)
         for gr in chunk[:n_real]:
             ids += [gr["id"]] * g
         orig_pos.append(np.repeat(cond.pos[:n_real].cpu().numpy(), g, 0))
@@ -115,11 +159,16 @@ def generate(cfg: Config, params_or_model: Union[dict, DiffusionDenoiser],
             np.repeat(cond.species[:n_real].cpu().numpy(), g, 0))
         masks.append(np.repeat(cond.mask[:n_real].cpu().numpy(), g, 0))
 
-    def cat(field):
-        return np.concatenate([o[field] for o in outs], axis=0)
+    def cat(field, axis=0):
+        return np.concatenate([o[field] for o in outs], axis=axis)
 
+    extra = {}
+    if return_trajectory:
+        extra = {k: cat(k, axis=1) for k in ("trajectory_pos",
+                                              "trajectory_h")}
     return {
         "ids": ids,
+        **extra,
         "original_pos": np.concatenate(orig_pos, axis=0),
         "original_species": np.concatenate(orig_species, axis=0),
         "mask": np.concatenate(masks, axis=0),

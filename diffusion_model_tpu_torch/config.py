@@ -3,8 +3,9 @@
 The fields and their defaults carry the names of ``diffusion_model_tpu.config``
 so one JSON describes both packages. Only the fields that conditional
 generation reads are here (dense topology, or kNN lists with the virtual
-node and the residual node update); ``from_dict`` ignores the rest
-(training knobs, initialisation scales, mesh settings) and raises
+node and the residual node update; the predefined or the learned noise
+schedule); ``from_dict`` ignores the rest (training knobs, the learned
+schedule's ``gamma_init``, initialisation scales, mesh settings) and raises
 ``NotImplementedError`` for settings whose code path the port does not have
 yet. No yaml: PyTorch does not depend on PyYAML, so a module-level
 ``import yaml`` would stop the port from importing on a machine that has
@@ -25,7 +26,6 @@ _SUPPORTED = (
     ("compat_scalar_norm", False),
     ("ring_sample", False),
     ("x_parameterization", "eps"),
-    ("noise_schedule", "predefined"),
     ("spectrum_to_latent", False),
 )
 
@@ -53,7 +53,7 @@ class Config:
 
     # diffusion process
     num_diffusion_timestep: int = 1000
-    noise_schedule: str = "predefined"
+    noise_schedule: str = "predefined"   # or "learned": params["gamma"]
     noise_precision: float = 1e-5
     noise_schedule_power: float = 2.0
     x_parameterization: str = "eps"
@@ -68,6 +68,7 @@ class Config:
     sample_grid: str = "uniform"
     gen_num_per_spectrum: int = 5
     max_nan_retries: int = 10
+    snapshot_every: int = 100   # reverse steps between trajectory frames
 
     # topology and numerics: neighbor_k > 0 samples over kNN lists
     n_max: int = 16
@@ -95,6 +96,10 @@ class Config:
             raise ValueError(
                 f"compute_dtype={self.compute_dtype!r} must be 'float32' "
                 "or 'bfloat16'")
+        if self.noise_schedule not in ("predefined", "learned"):
+            raise ValueError(
+                f"noise_schedule={self.noise_schedule!r} must be "
+                "'predefined' or 'learned'")
         if self.sample_grid not in ("uniform", "snr"):
             raise ValueError(
                 f"sample_grid={self.sample_grid!r} must be 'uniform' or 'snr'")

@@ -1,6 +1,8 @@
 """Reverse steps of the joint (x, h) diffusion process on padded batches.
 
-``alphas[t]`` for t = 0..T is alpha_t and sigma_t = sqrt(1 - alpha_t^2).
+``alphas[t]`` for t = 0..T is alpha_t and sigma_t = sqrt(1 - alpha_t^2),
+from the polynomial schedule or from a learned gamma network (where
+sigma_t = sqrt(sigmoid(gamma)) is the same sqrt(1 - alpha_t^2)).
 The posterior mean of the t -> s = t-1 step is
 ``mu = z/alpha_ts - sigma2_ts * eps / (alpha_ts * sigma_t)`` with
 ``alpha_ts = alpha_t/alpha_s``, and the ancestral step adds
@@ -18,8 +20,12 @@ from typing import Optional
 import torch
 
 from diffusion_model_tpu_torch.config import Config
+from diffusion_model_tpu_torch.nn.gamma import GammaNetwork
 from diffusion_model_tpu_torch.ops.com import remove_mean
-from diffusion_model_tpu_torch.ops.schedules import polynomial_alpha_schedule
+from diffusion_model_tpu_torch.ops.schedules import (
+    linspace_f32,
+    polynomial_alpha_schedule,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +50,19 @@ def predefined_schedule(cfg: Config, device=None) -> Schedule:
     return Schedule(alphas=polynomial_alpha_schedule(
         cfg.num_diffusion_timestep, s=cfg.noise_precision,
         power=cfg.noise_schedule_power, device=device))
+
+
+@torch.no_grad()
+def learned_schedule(gamma: GammaNetwork, num_timesteps: int,
+                     device=None) -> Schedule:
+    """Schedule from a gamma network: ``alpha_t = sqrt(sigmoid(-gamma(t/T)))``
+    over JAX's ``linspace(0, 1, T+1)`` grid, float32, computed where
+    ``gamma``'s parameters are and returned on ``device`` (default there).
+    """
+    where = gamma.gamma_0.device
+    t_grid = linspace_f32(0.0, 1.0, num_timesteps + 1, device=where)[:, None]
+    alphas = torch.sqrt(torch.sigmoid(-gamma(t_grid)[:, 0]))
+    return Schedule(alphas=alphas.to(where if device is None else device))
 
 
 def shape_noise(noise: torch.Tensor, mode: str,

@@ -14,7 +14,7 @@ draws, which is how the tests hold whole chains against the JAX package.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +40,9 @@ class SampleResult:
     h: torch.Tensor         # [B, N, A] raw final species channel
     finite: torch.Tensor    # [B] bool: no NaN/Inf produced
     accepted: torch.Tensor  # [B] bool: finite and every coordinate <= 1000
+    # (pos [F, B, N, 3], h [F, B, N, A]): the state entering every
+    # snapshot_every-th reverse step, the pure-noise state first; or None
+    trajectory: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 def tile_batch(cond: GraphBatch, n: int) -> GraphBatch:
@@ -86,7 +89,8 @@ def _strided(schedule: Schedule, cfg: Config):
 @torch.no_grad()
 def sample(denoise_fn: Callable, schedule: Schedule, cfg: Config,
            generator: Optional[torch.Generator], cond: GraphBatch,
-           noise: Optional[NoiseSource] = None) -> SampleResult:
+           noise: Optional[NoiseSource] = None,
+           return_trajectory: bool = False) -> SampleResult:
     """Generate one structure per entry of ``cond``.
 
     Args:
@@ -99,6 +103,9 @@ def sample(denoise_fn: Callable, schedule: Schedule, cfg: Config,
       cond: conditioning batch; its ``spectrum``, ``exo`` and ``mask`` drive
         generation (``species`` too when species are not diffused).
       noise: optional replacement source of standard-normal draws.
+      return_trajectory: keep the (pos, h) entering reverse steps 0,
+        ``cfg.snapshot_every``, ... of the chain (``SampleResult.trajectory``);
+        the draws and the result are the same either way.
     """
     device = cond.device
     if noise is None:
@@ -140,7 +147,10 @@ def sample(denoise_fn: Callable, schedule: Schedule, cfg: Config,
         pos_noise = noise(pos.shape)
         return pos_noise, (noise(h.shape) if cfg.diffuse_species else None)
 
+    frames = []
     for t in range(steps, 0, -1):
+        if return_trajectory and (steps - t) % cfg.snapshot_every == 0:
+            frames.append((pos, h))
         eps_x, eps_h = denoise(pos, h, t)
         pos_noise, h_noise = draws()
         new_pos = reverse_diffuse_one_step(schedule, pos_noise, pos, eps_x, t,
@@ -167,25 +177,34 @@ def sample(denoise_fn: Callable, schedule: Schedule, cfg: Config,
               & torch.isfinite(flat_h).all(dim=-1))
     # coordinates above 1000 are rejected (signed comparison)
     accepted = finite & ~(flat_pos > 1000.0).any(dim=-1)
+    trajectory = None
+    if return_trajectory:
+        trajectory = (torch.stack([f[0] for f in frames]),
+                      torch.stack([f[1] for f in frames]))
     return SampleResult(pos=pos, species=species, h=h, finite=finite,
-                        accepted=accepted)
+                        accepted=accepted, trajectory=trajectory)
 
 
 def sample_with_retry(denoise_fn: Callable, schedule: Schedule, cfg: Config,
                       generator: Optional[torch.Generator], cond: GraphBatch,
-                      noise: Optional[NoiseSource] = None) -> SampleResult:
+                      noise: Optional[NoiseSource] = None,
+                      return_trajectory: bool = False) -> SampleResult:
     """``sample``, then re-draw the entries that were not accepted, keeping
-    the accepted ones, for at most ``cfg.max_nan_retries`` rounds."""
-    result = sample(denoise_fn, schedule, cfg, generator, cond, noise)
+    the accepted ones (their trajectories too, over batch axis 1), for at
+    most ``cfg.max_nan_retries`` rounds."""
+    result = sample(denoise_fn, schedule, cfg, generator, cond, noise,
+                    return_trajectory)
     for _ in range(cfg.max_nan_retries):
         if bool(result.accepted.all()):
             break
-        retry = sample(denoise_fn, schedule, cfg, generator, cond, noise)
+        retry = sample(denoise_fn, schedule, cfg, generator, cond, noise,
+                       return_trajectory)
         take = ~result.accepted & retry.accepted
 
-        def merge(old, new):
-            return torch.where(take.reshape((-1,) + (1,) * (old.ndim - 1)),
-                               new, old)
+        def merge(old, new, axis=0):
+            shape = [1] * old.ndim
+            shape[axis] = -1
+            return torch.where(take.reshape(shape), new, old)
 
         result = SampleResult(
             pos=merge(result.pos, retry.pos),
@@ -193,5 +212,8 @@ def sample_with_retry(denoise_fn: Callable, schedule: Schedule, cfg: Config,
             h=merge(result.h, retry.h),
             finite=torch.where(take, retry.finite, result.finite),
             accepted=result.accepted | retry.accepted,
+            trajectory=None if result.trajectory is None else tuple(
+                merge(o, n, axis=1)
+                for o, n in zip(result.trajectory, retry.trajectory)),
         )
     return result

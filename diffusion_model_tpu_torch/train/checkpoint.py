@@ -2,8 +2,9 @@
 
 A snapshot written by ``diffusion_model_tpu.train.checkpoint.save_params_npz``
 holds the flattened flax parameter tree (``denoiser/params/egnn/egcl_0/
-mlp_m_dense0/kernel`` ...) and the run's config as a JSON string under
-``__config_json__``. Both load here with numpy alone.
+mlp_m_dense0/kernel`` ..., and ``gamma/params/...`` for a learned noise
+schedule) and the run's config as a JSON string under ``__config_json__``.
+Both load here with numpy alone.
 """
 
 from __future__ import annotations
@@ -92,3 +93,16 @@ def state_dict_from_flax(tree: dict) -> dict:
                 leaf, t = "weight", t.T
         out[f"{module_path.replace('/', '.')}.{leaf}"] = t.contiguous()
     return out
+
+
+def gamma_state_dict_from_flax(tree: dict) -> dict:
+    """Map ``gamma/params/{l1,l2,l3}/weight`` and ``gamma/params/gamma_{0,1}``
+    of a learned-schedule snapshot onto ``GammaNetwork``'s state dict.
+
+    The weights are ``[out, in]`` in the snapshot already and stay so; the
+    endpoints are the stored (pre-scaled) values: a snapshot carries no
+    endpoint-scale stamp and, as the JAX package's ``load_params_npz``,
+    none is applied.
+    """
+    return {key.replace("/", "."): torch.from_numpy(np.array(v, np.float32))
+            for key, v in _flatten(tree["gamma"]["params"]).items()}

@@ -87,8 +87,6 @@ def test_unported_options_raise():
     cfg = from_dict(jcfg.to_dict())
     with pytest.raises(NotImplementedError, match="size_predictor"):
         api.generate(cfg, params, [], device="cpu", size_predictor=object())
-    with pytest.raises(NotImplementedError, match="trajectory"):
-        api.generate(cfg, params, [], device="cpu", return_trajectory=True)
 
 
 def test_generate_samples_on_the_card_by_default(monkeypatch):

@@ -83,7 +83,7 @@ def test_large_cell_settings_carry_over(field, value):
 @pytest.mark.parametrize("field,value", [
     ("edge_rbf", 8), ("global_radius_feature", True),
     ("compat_scalar_norm", True), ("ring_sample", True),
-    ("x_parameterization", "x0"), ("noise_schedule", "learned"),
+    ("x_parameterization", "x0"), ("spectrum_to_latent", True),
 ])
 def test_unported_settings_raise_naming_the_field(field, value):
     d = {field: value}
@@ -93,8 +93,53 @@ def test_unported_settings_raise_naming_the_field(field, value):
 
 
 def test_learned_schedule_snapshot_is_refused():
-    with pytest.raises(NotImplementedError, match="noise_schedule"):
-        port_ckpt.load_config_npz(str(LEARNED))
+    """The learned snapshot loads, but its denoiser alone does not sample:
+    ``generate`` refuses a learned-schedule model that comes without its
+    schedule, and never falls back to the polynomial table."""
+    from diffusion_model_tpu_torch import api
+
+    cfg = port_ckpt.load_config_npz(str(LEARNED))
+    model = api.denoiser_from_params(
+        cfg, port_ckpt.load_params_npz(str(LEARNED)), "cpu")
+    with pytest.raises(ValueError, match="noise_schedule"):
+        api.generate(cfg, model, [], device="cpu")
+
+
+def test_learned_schedule_snapshot_loads():
+    got = port_ckpt.load_config_npz(str(LEARNED))
+    want = jax_ckpt.load_config_npz(str(LEARNED))
+    for f in dataclasses.fields(got):
+        assert getattr(got, f.name) == getattr(want, f.name), f.name
+    assert got.noise_schedule == "learned" and got.seed == 2025
+    tree = port_ckpt.load_params_npz(str(LEARNED))
+    want_tree = jax_ckpt.load_params_npz(str(LEARNED))
+    flat, want_flat = _flat(tree), _flat(want_tree)
+    assert sorted(flat) == sorted(want_flat) and len(flat) == 93
+    for k in want_flat:
+        np.testing.assert_array_equal(flat[k], want_flat[k], err_msg=k)
+    gamma = port_ckpt.gamma_state_dict_from_flax(tree)
+    assert {k: tuple(v.shape) for k, v in gamma.items()} == {
+        "l1.weight": (1, 1), "l2.weight": (1024, 1), "l3.weight": (1, 1024),
+        "gamma_0": (1,), "gamma_1": (1,)}
+    for k, v in gamma.items():
+        np.testing.assert_array_equal(
+            v.numpy(), want_flat["gamma/params/" + k.replace(".", "/")])
+
+
+@pytest.mark.parametrize("value", ["polynomial", "Learned", ""])
+def test_unknown_noise_schedule_raises_naming_the_field(value):
+    with pytest.raises(ValueError, match="noise_schedule"):
+        port_config.from_dict({"noise_schedule": value})
+
+
+def test_learned_schedule_settings_carry_over():
+    d = {"noise_schedule": "learned", "snapshot_every": 7,
+         "gamma_init": "polynomial", "gamma_boundary_weight": 2.0}
+    got, want = port_config.from_dict(d), jax_from_dict(d)
+    assert got.noise_schedule == want.noise_schedule == "learned"
+    assert got.snapshot_every == want.snapshot_every == 7
+    assert not hasattr(got, "gamma_init")
+    assert port_config.Config().snapshot_every == 100
 
 
 def test_corrupt_config_json_raises(tmp_path):

@@ -21,6 +21,8 @@ from diffusion_model_tpu_torch.probes import (
     pipeline,
 )
 from torch_port_fixtures import (
+    FIXTURE,
+    SNAPSHOT,
     edge_args,
     edge_inputs,
     knn_args,
@@ -498,3 +500,47 @@ def test_probe_kernels_refuse_bad_shapes_on_the_card(cuda_device):
     with pytest.raises(ValueError, match="multiples"):
         matmul_rate.chain(a, w, 1, "warp")
     assert matmul_rate.probe_matmul_rate_launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("std", [0.0, 0.3])
+def test_rdf_on_the_card_matches_the_cpu(cuda_device, std):
+    """The evaluators' curves on the card against the CPU: counts exactly
+    (a true float32 division by dr on both), curves rtol 1e-5 / atol 1e-6
+    of their max, the CN2 statistics rtol 1e-6."""
+    from diffusion_model_tpu_torch.evals.cn2 import cn2_statistics
+    from diffusion_model_tpu_torch.ops.rdf import rdf_bin_counts, rdf_from_exo
+
+    with np.load(FIXTURE) as fx:
+        pos, mask = fx["cond_pos"], fx["cond_mask"]
+    rng = np.random.default_rng(3)
+    pos = (pos + rng.normal(size=pos.shape) * std * mask[..., None]
+           ).astype(np.float32)
+    cpu = torch.from_numpy(pos), torch.from_numpy(mask)
+    card = tuple(a.to(cuda_device) for a in cpu)
+    assert torch.equal(rdf_bin_counts(*card).cpu(), rdf_bin_counts(*cpu))
+    want = rdf_from_exo(*cpu)
+    got = rdf_from_exo(*card).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-6 * float(want.abs().max()))
+    stats = cn2_statistics(pos[:, :3], device=cuda_device)
+    for k, v in cn2_statistics(pos[:, :3], device="cpu").items():
+        np.testing.assert_allclose(stats[k], v, rtol=1e-6, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_gamma_table_on_the_card_matches_the_cpu(cuda_device):
+    """alphas atol 5e-6, the table's float32 floor (``test_torch_gamma.py``):
+    the card sums the 1024 hidden units in another order."""
+    from diffusion_model_tpu_torch import api
+    from diffusion_model_tpu_torch.train.checkpoint import (
+        load_config_npz,
+        load_params_npz,
+    )
+
+    path = str(SNAPSHOT.parent / "q_learned_r5_s2025.npz")
+    cfg, params = load_config_npz(path), load_params_npz(path)
+    want = api.schedule_for(cfg, params, "cpu").alphas
+    got = api.schedule_for(cfg, params, cuda_device).alphas
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=5e-6)

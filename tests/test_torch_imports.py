@@ -26,10 +26,12 @@ def port_modules():
 
 def test_every_module_is_listed():
     names = port_modules()
-    for expected in ("api", "config", "data.batch", "data.synthetic",
-                     "diffusion.process", "diffusion.sampler",
-                     "nn.compressor", "nn.denoiser", "nn.egnn", "ops.angles",
-                     "ops.com", "ops.edges", "ops.egcl_knn", "ops.egcl_pair",
+    for expected in ("api", "config", "data.batch", "data.split",
+                     "data.synthetic", "diffusion.process",
+                     "diffusion.sampler", "evals", "evals.cn2", "evals.rdf",
+                     "evals.restore_check", "nn.compressor", "nn.denoiser",
+                     "nn.egnn", "nn.gamma", "ops.angles", "ops.com",
+                     "ops.edges", "ops.egcl_knn", "ops.egcl_pair", "ops.rdf",
                      "ops.schedules", "ops._build", "probes._common",
                      "probes.kernel_stages", "probes.matmul_rate",
                      "probes.overlap", "probes.pipeline",
