@@ -80,7 +80,25 @@ Phases, each printed as one JSON line:
      int8 EGCL edge tile in stages at N=192 (``probes.kernel_stages``:
      TMA-fed wgmma in clusters of two sharing W by multicast; every mode
      twice bit for bit, padded targets inert, each mode beside the product
-     alone through ``torch._int_mm`` / ``q @ w``).
+     alone through ``torch._int_mm`` / ``q @ w``);
+ 15. train_grad: the edge functions' gradients on the card (K1 or K2
+     forward, autograd of the plain statement backward, ``ops.edge_grad``)
+     against autograd of the plain statement, K1 at 64 x 16 and K2 at 64 x
+     16 K=15 and 2 x 512 K=32 on the flagship's layer-0 inputs, float32
+     (rtol 5e-3) and bfloat16 (relative L2 2e-2), forward, backward and
+     plain forward timed;
+ 16. train_parity: one ``Trainer`` step on the card from the flagship's
+     weights on 16 train graphs with the JAX draws of
+     ``tests/fixtures/torch_port/train.npz``: loss, ``sum_sq``, per-leaf
+     gradient and update norms against the JAX package's (float32 loss rtol
+     1e-3, norms 5e-3; bfloat16 2e-2, 5e-2), K1 5 times a forward;
+ 17. train_flagship: ``api.train`` with the flagship's recipe from a fresh
+     init on its 256 graphs, 2 epochs (and 1 epoch on the kNN-15 route):
+     losses, ms a train step, peak memory, launches (5 a forward), wall s;
+     the written npz generates one chunk through ``api.generate``;
+ 18. train_learned: the learned recipe's 6000-step gamma fit on the card
+     from JAX's initial parameters, within 1e-3 of JAX's alpha table, then
+     one epoch with the gamma boundary term (gamma gradients nonzero).
 
 Any failed check raises, and the script exits non-zero without its result
 line. The last lines are the kernel table (with each kernel's bound: its
@@ -142,6 +160,17 @@ QUALITY = {
 LEARNED_R2_FAULT = "F4 (ROADMAP.md section 3), open"
 TRAJECTORY_STEPS = 50
 TRAJECTORY_EVERY = 10
+TRAIN_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port" / "train.npz"
+TRAIN_RUN = ROOT / "build" / "chip_smoke_train"
+TRAIN_B = 64           # the flagship recipe's batch
+TRAIN_EPOCHS = 2       # of api.train at the flagship recipe
+TRAIN_STEP_REPS = 5    # timed train steps after the first
+# the card's Function gradients against autograd of the plain statement
+GRAD_F32_RTOL = 5e-3
+GRAD_BF16_REL_L2 = 2e-2
+# the training step against the JAX fixture: (loss rtol, norm rtol)
+TRAIN_TOL = {"float32": (1e-3, 5e-3), "bfloat16": (2e-2, 5e-2)}
+GAMMA_FIT_ATOL = 1e-3
 
 
 def log(record: dict) -> None:
@@ -1042,6 +1071,378 @@ def launches_per_call(cfg, params, fx, device) -> dict:
     return rec
 
 
+def grad_check(name: str, label: str, args, dtype_name: str) -> dict:
+    """The edge function's gradients on the card (kernel forward, autograd
+    of the plain statement backward, ``ops.edge_grad``) against autograd
+    of the whole plain statement on the same inputs and a seeded random
+    cotangent, and both timed (CUDA events)."""
+    import torch
+
+    from diffusion_model_tpu_torch.ops import egcl_knn, egcl_pair
+
+    kernel, plain = kernel_table()[name][:2]
+    data = {5} if name == "egcl_pair" else {4, 5}
+    leaves = [a.detach().clone().requires_grad_(i not in data)
+              for i, a in enumerate(args)]
+    diff = [a for i, a in enumerate(leaves) if i not in data]
+    counter = egcl_pair if name == "egcl_pair" else egcl_knn
+    attr = f"{name}_launches"
+    before = getattr(counter, attr)
+    out = kernel(*leaves)
+    launched = getattr(counter, attr) - before
+    g = torch.Generator(device=args[0].device).manual_seed(7)
+    cot = tuple(torch.randn(o.shape, generator=g, device=o.device)
+                for o in out)
+    got = torch.autograd.grad(out, diff, cot, retain_graph=True)
+    want_out = plain(*leaves)
+    want = torch.autograd.grad(want_out, diff, cot, retain_graph=True)
+    torch.cuda.synchronize()
+    if launched != 1 or not out[0].requires_grad:
+        raise AssertionError(f"{name} {label}: {launched} launches, grad "
+                             f"{out[0].requires_grad}")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if dtype_name == "float32":
+            torch.testing.assert_close(
+                a, b, rtol=GRAD_F32_RTOL,
+                atol=GRAD_F32_RTOL * 1e-2 * float(b.abs().max()),
+                msg=lambda m: f"{name} {label} grad {i}: {m}")
+            worst = max(worst, float((a - b).abs().max() / b.abs().max()))
+        else:
+            err = rel_l2(a, b)
+            worst = max(worst, err)
+            if not err <= GRAD_BF16_REL_L2:
+                raise AssertionError(f"{name} {label} bf16 grad {i}: "
+                                     f"relative L2 {err}")
+    rec = {"kernel": name, "shape": label, "dtype": dtype_name,
+           "grads_checked": len(got),
+           ("worst_err_over_scale" if dtype_name == "float32"
+            else "worst_rel_l2"): worst,
+           "forward_max_abs_err": max(float((o - w).abs().max())
+                                      for o, w in zip(out, want_out)),
+           "tolerance": (f"rtol {GRAD_F32_RTOL}" if dtype_name == "float32"
+                         else f"relative L2 {GRAD_BF16_REL_L2}"),
+           "forward_ms": cuda_ms(lambda: kernel(*leaves), 10),
+           "backward_ms": cuda_ms(lambda: torch.autograd.grad(
+               out, diff, cot, retain_graph=True), 5),
+           "plain_forward_ms": cuda_ms(lambda: plain(*args), 5),
+           "plain_backward_ms": cuda_ms(lambda: torch.autograd.grad(
+               want_out, diff, cot, retain_graph=True), 3)}
+    return rec
+
+
+def phase_train_grad(cfg, params, fx, device, card: str) -> dict:
+    """K1 at 64 x 16 and K2 at 64 x 16 K=15 and 2 x 512 K=32, on the
+    flagship's layer-0 edge inputs, float32 and bfloat16: ``grad_check``."""
+    from diffusion_model_tpu_torch.data.synthetic import amorphous_cell
+
+    served = tuple(a[:TRAIN_B] for a in served_inputs(fx))
+    mids = [amorphous_cell(seed=s, num_atoms=MID_ATOMS) for s in (0, 1)]
+    shapes = (("egcl_pair", "64x16", served, 0),
+              ("egcl_knn", "64x16_k15", served, SERVED_K),
+              ("egcl_knn", "2x512_k32", cell_inputs(mids, device), LARGE_K))
+    rows = []
+    for dtype_name in ("float32", "bfloat16"):
+        dcfg = cfg.replace(compute_dtype=dtype_name)
+        for name, label, inputs, k in shapes:
+            args = capture_edge_inputs(dcfg, params, device, *inputs, k=k)[0]
+            rows.append(grad_check(name, label, args, dtype_name))
+    log({"phase": "train_grad", "card": card, "checks": rows})
+    return {f"{r['kernel']}_{r['shape']}_{r['dtype']}": r for r in rows}
+
+
+def flagship_graphs(cfg) -> list:
+    """The 256 synthetic graphs a snapshot was trained on (its seed)."""
+    from diffusion_model_tpu_torch.data.synthetic import (
+        synthetic_sio2_dataset,
+    )
+
+    return synthetic_sio2_dataset(cfg.seed, NUM_GRAPHS, cfg.n_max,
+                                  spectrum_size=cfg.spectrum_size,
+                                  shells=SHELLS)
+
+
+def phase_train_parity(device, card: str) -> None:
+    """From the flagship's weights, on the first 16 train graphs and the
+    fixture's JAX draws, through ``Trainer`` on the card (K1 forward, its
+    plain backward): the loss, ``sum_sq``, the per-leaf gradient norms and
+    the per-leaf update norms of one ``RAdamScheduleFree`` step against the
+    JAX package's (``tests/fixtures/torch_port/train.npz``), float32 and
+    bfloat16; K1 launched 5 times a forward, the plain route never."""
+    import numpy as np
+    import torch
+
+    from diffusion_model_tpu_torch.data.batch import collate
+    from diffusion_model_tpu_torch.data.split import split_dataset
+    from diffusion_model_tpu_torch.nn import egnn
+    from diffusion_model_tpu_torch.ops import egcl_knn, egcl_pair
+    from diffusion_model_tpu_torch.train.checkpoint import (
+        load_config_npz,
+        load_params_npz,
+        port_name,
+        save_params_npz,
+    )
+    from diffusion_model_tpu_torch.train.trainer import Trainer, params_tree
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_port_fixtures import ReplayDraws
+
+    with np.load(TRAIN_FIXTURE) as z:
+        fx = {k: z[k] for k in z.files}
+    draws = {k[len("draw_"):]: [v] for k, v in fx.items()
+             if k.startswith("draw_")}
+    cfg = load_config_npz(str(SNAPSHOT))
+    params = load_params_npz(str(SNAPSHOT))
+    train = split_dataset(flagship_graphs(cfg), cfg.seed)[0]
+    batch = collate(train[:len(fx["draw_t"])], cfg.n_max, device)
+    if not np.array_equal(batch.pos.cpu().numpy(), fx["train_pos"]):
+        raise AssertionError("the port's train batch differs from the "
+                             "fixture's")
+    names = ["denoiser." + port_name(n.split("/", 2)[2])
+             for n in fx["leaf_names"]]
+    rec = {"phase": "train_parity", "card": card,
+           "graphs": int(batch.batch_size)}
+    for dt, (loss_rtol, norm_rtol) in TRAIN_TOL.items():
+        trainer = Trainer(cfg.replace(compute_dtype=dt), device=device)
+        state = trainer.init_state(cfg.seed, params=params)
+        egcl_pair.egcl_pair_launches = egcl_knn.egcl_knn_launches = 0
+        egnn.plain_edge_calls = 0
+        loss, sum_sq, _, grads = trainer.loss_and_grads(
+            state, ReplayDraws(draws, device), batch)
+        old = {k: p.detach().clone() for k, p in state.params.items()}
+        state, _ = trainer.train_step(state, ReplayDraws(draws, device),
+                                      batch)
+        torch.cuda.synchronize()
+        counts = (egcl_pair.egcl_pair_launches, egcl_knn.egcl_knn_launches,
+                  egnn.plain_edge_calls)
+        if counts != (2 * cfg.L, 0, 0):
+            raise AssertionError(f"{dt}: (K1, K2, plain) = {counts} over two "
+                                 f"forwards")
+        got = {
+            "loss": float(loss), "sum_sq": float(sum_sq),
+            "grad_norm": np.array([float(grads[k].norm()) for k in names]),
+            "update_norm": np.array([float((state.params[k].detach()
+                                            - old[k]).norm())
+                                     for k in names])}
+        worst = {}
+        for key, value in got.items():
+            want = fx[f"{key}_{dt}"]
+            err = np.abs(value - want) / np.abs(want)
+            tol = loss_rtol if key in ("loss", "sum_sq") else norm_rtol
+            if np.ndim(err):
+                # a leaf whose gradient JAX's own bf16 moves from its f32
+                # (sums over many edges in bf16) is held to twice that move
+                f32 = fx[f"{key}_float32"]
+                tol = np.maximum(tol, 2 * np.abs(want - f32) / np.abs(f32))
+            worst[key] = float(np.max(err / tol))
+            if not np.all(err <= tol):
+                i = int(np.argmax(err / tol)) if np.ndim(err) else 0
+                raise AssertionError(
+                    f"train step {dt}: {key} off JAX's by {np.max(err)} "
+                    f"at {names[i] if np.ndim(err) else key}")
+        if dt == "bfloat16":
+            # the port-trained weights through save_params_npz and back
+            # generate, every sample finite
+            npz = str(TRAIN_RUN / "parity_step.npz")
+            save_params_npz(params_tree(state.eval_params(trainer.cfg)), npz,
+                            cfg=trainer.cfg)
+            gen = generated_chunk(load_config_npz(npz), load_params_npz(npz),
+                                  train, device)
+            if gen["finite"] != gen["samples"]:
+                raise AssertionError(f"the port-trained npz: {gen}")
+            rec["generated_from_port_npz"] = gen
+        rec[dt] = {"loss": got["loss"], "jax_loss": float(fx[f"loss_{dt}"]),
+                   "sum_sq": got["sum_sq"],
+                   "worst_err_over_tolerance": worst,
+                   "k1_launches_per_forward":
+                   counts[0] / 2, "plain_edge_calls": counts[2],
+                   "tolerance": {"loss": loss_rtol, "norms": norm_rtol,
+                                 "norms_of_leaves_jax_bf16_moves": "twice "
+                                 "JAX's bf16-f32 difference"}}
+    log(rec)
+
+
+def phase_train_flagship(device, card: str, k: int = 0,
+                         epochs: int = TRAIN_EPOCHS) -> dict:
+    """``api.train`` with the flagship's recipe (``q_predef_r5``'s config:
+    bf16, batch 64, RAdamScheduleFree, lr 2e-4, predefined schedule) from a
+    fresh init on its 256 graphs, on the dense route (``k`` 0, K1) or the
+    kNN route (K2): losses a epoch, ms a train step (CUDA events over
+    ``TRAIN_STEP_REPS`` steps after the first), peak memory, launches
+    (5 a forward) and wall s; the dense run's npz then generates one
+    chunk."""
+    import json
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from diffusion_model_tpu_torch import api
+    from diffusion_model_tpu_torch.data.batch import collate
+    from diffusion_model_tpu_torch.data.split import device_batch_iterator
+    from diffusion_model_tpu_torch.nn.denoiser import DiffusionDenoiser
+    from diffusion_model_tpu_torch.ops import egcl_knn, egcl_pair
+    from diffusion_model_tpu_torch.train.checkpoint import (
+        load_config_npz,
+        load_params_npz,
+    )
+    from diffusion_model_tpu_torch.train.loss import TrainNoise
+
+    cfg = load_config_npz(str(SNAPSHOT)).replace(neighbor_k=k)
+    run_dir = TRAIN_RUN / ("knn" if k else "dense")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    forwards = []
+    hook = torch.nn.modules.module.register_module_forward_hook(
+        lambda m, i, o: forwards.append(1)
+        if isinstance(m, DiffusionDenoiser) else None)
+    egcl_pair.egcl_pair_launches = egcl_knn.egcl_knn_launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    try:
+        trainer, state, (train, _, test) = api.train(
+            cfg, flagship_graphs(cfg), str(run_dir), num_epochs=epochs,
+            device=device)
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    wall = time.perf_counter() - t0
+    launches = {"egcl_pair": egcl_pair.egcl_pair_launches,
+                "egcl_knn": egcl_knn.egcl_knn_launches}
+    want = {"egcl_pair": 0, "egcl_knn": 0,
+            "egcl_knn" if k else "egcl_pair": cfg.L * len(forwards)}
+    if launches != want:
+        raise AssertionError(f"training launches {launches}, want {want} "
+                             f"over {len(forwards)} forwards")
+    lines = [json.loads(x) for x in open(run_dir / "metrics.jsonl")]
+    losses = [(r["train_loss"], r["eval_loss"]) for r in lines
+              if "train_loss" in r]
+    if len(losses) != epochs or not np.isfinite(losses).all():
+        raise AssertionError(f"training losses: {lines}")
+    peak = torch.cuda.max_memory_allocated(device)
+    batch = next(device_batch_iterator(collate(train, cfg.n_max, device),
+                                       cfg.batch_size, seed=0))
+    noise = TrainNoise((cfg.seed, 99, 0), device)
+    model = (trainer.model, trainer.gamma)
+    split = {
+        "forward_ms": cuda_ms(lambda: trainer._loss(*model, noise, batch),
+                              TRAIN_STEP_REPS),
+        "forward_backward_ms": cuda_ms(lambda: trainer.loss_and_grads(
+            state, noise, batch), TRAIN_STEP_REPS),
+        "step_host_ms": host_us(lambda: trainer.train_step(
+            state, noise, batch), TRAIN_STEP_REPS) / 1e3}
+    step_ms = cuda_ms(lambda: trainer.train_step(state, noise, batch),
+                      TRAIN_STEP_REPS)
+    rec = {"phase": "train_flagship_knn" if k else "train_flagship",
+           "card": card, "neighbor_k": k, "batch": cfg.batch_size,
+           "compute_dtype": cfg.compute_dtype, "optimizer": cfg.optimizer,
+           "train_graphs": len(train), "epochs": losses,
+           "steps": state.step, "forwards": len(forwards),
+           "launches": launches, "ms_per_train_step": step_ms,
+           "step_split": split,
+           "max_memory_allocated_bytes": peak, "wall_s": wall}
+    if not k:
+        # a model 8 steps from its init is not a sampler yet: its chain
+        # may leave the finite range, so the samples' finite share is
+        # read, not gated (phase train_parity gates a trained model's)
+        npz = str(run_dir / "params.npz")
+        if load_config_npz(npz) != cfg:
+            raise AssertionError("the npz's config is not the run's")
+        rec["generated"] = generated_chunk(cfg, load_params_npz(npz), test,
+                                           device)
+    log(rec)
+    return rec
+
+
+def generated_chunk(cfg, params: dict, graphs: list, device) -> dict:
+    """One chunk of ``api.generate`` (``GEN_BATCH`` conditions x
+    ``GEN_PER_CONDITION``, 1000 steps): its samples, finite rows as the
+    sampler flags them and as numpy reads them, accepted, K1 launches."""
+    import numpy as np
+
+    from diffusion_model_tpu_torch import api
+    from diffusion_model_tpu_torch.ops import egcl_pair
+
+    before = egcl_pair.egcl_pair_launches
+    out = api.generate(cfg, params, graphs[:GEN_BATCH], device=device)
+    rows = np.isfinite(out["generated_pos"]).all(axis=(1, 2))
+    rec = {"samples": len(out["ids"]), "finite": int(rows.sum()),
+           "flagged_finite": int(out["finite"].sum()),
+           "accepted": int(out["accepted"].sum()),
+           "k1_launches": egcl_pair.egcl_pair_launches - before}
+    if not np.array_equal(rows, out["finite"]):
+        raise AssertionError(f"the sampler's finite flags are wrong: {rec}")
+    return rec
+
+
+def phase_train_learned(device, card: str) -> None:
+    """The learned recipe (``q_learned_r5_s2025``'s config): the gamma
+    network fitted to the polynomial table over 6000 steps on the card from
+    JAX's initial parameters (the fixture), its alpha table within
+    ``GAMMA_FIT_ATOL`` of JAX's fit; then one epoch with the gamma boundary
+    term from a fresh denoiser: gamma gradients nonzero, loss finite."""
+    import numpy as np
+    import torch
+
+    from diffusion_model_tpu_torch.data.batch import collate
+    from diffusion_model_tpu_torch.data.split import (
+        device_batch_iterator,
+        split_dataset,
+    )
+    from diffusion_model_tpu_torch.diffusion.process import (
+        learned_schedule,
+        predefined_schedule,
+    )
+    from diffusion_model_tpu_torch.nn.gamma import (
+        GammaNetwork,
+        fit_gamma_to_schedule,
+    )
+    from diffusion_model_tpu_torch.train.checkpoint import load_config_npz
+    from diffusion_model_tpu_torch.train.loss import TrainNoise
+    from diffusion_model_tpu_torch.train.trainer import Trainer, TrainState
+
+    with np.load(TRAIN_FIXTURE) as z:
+        fx = {k: z[k] for k in z.files}
+    cfg = load_config_npz(str(LEARNED))
+    gamma = GammaNetwork(device=device)
+    gamma.load_state_dict({
+        k[len("gamma_init_"):].replace("/", "."): torch.from_numpy(v)
+        for k, v in fx.items() if k.startswith("gamma_init_")})
+    t0 = time.perf_counter()
+    fit_err = fit_gamma_to_schedule(gamma, predefined_schedule(
+        cfg, device=device).alphas)
+    fit_s = time.perf_counter() - t0
+    with torch.no_grad():
+        alphas = learned_schedule(gamma, cfg.num_diffusion_timestep).alphas
+    off = float(np.abs(alphas.cpu().numpy() - fx["gamma_fit_alphas"]).max())
+    if not off <= GAMMA_FIT_ATOL:
+        raise AssertionError(f"gamma fit off JAX's by {off}")
+    trainer = Trainer(cfg, device=device)
+    state = trainer.init_state(cfg.seed, skip_gamma_fit=True)
+    with torch.no_grad():
+        for name, p in trainer.gamma.named_parameters():
+            p.copy_(dict(gamma.named_parameters())[name])
+    state = TrainState(state.params, trainer.optimizer.init(state.params))
+    train = split_dataset(flagship_graphs(cfg), cfg.seed)[0]
+    data = collate(train, cfg.n_max, device)
+    noise = TrainNoise((cfg.seed, 0, 0), device)
+    batch = next(device_batch_iterator(data, cfg.batch_size, seed=cfg.seed))
+    loss, _, _, grads = trainer.loss_and_grads(state, noise, batch)
+    gamma_grads = {k: float(g.norm()) for k, g in grads.items()
+                   if k.startswith("gamma.")}
+    state, train_loss = trainer.train_epoch(
+        state, noise, device_batch_iterator(data, cfg.batch_size,
+                                            seed=cfg.seed))
+    rec = {"phase": "train_learned", "card": card, "fit_steps": 6000,
+           "fit_s": fit_s, "fit_max_alpha2_err": fit_err,
+           "alpha_off_jax_fit": off, "tolerance": GAMMA_FIT_ATOL,
+           "first_loss": float(loss), "gamma_grad_norms": gamma_grads,
+           "epoch_train_loss": train_loss, "steps": state.step}
+    log(rec)
+    if not (sum(gamma_grads.values()) > 0 and np.isfinite(float(loss))
+            and np.isfinite(train_loss)):
+        raise AssertionError(f"learned recipe: {rec}")
+
+
 def edge_flops(f1: int, fm: int, h: int = 0) -> int:
     """Tensor-core FLOPs of one live edge: both second-layer products, and
     for K2 the j-side first layer (4 H F1)."""
@@ -1334,6 +1735,13 @@ def main() -> int:
                                    cfg.replace(neighbor_k=SERVED_K), params,
                                    graphs, device)
     kernels_only("large_cell", phase_large_cell, cfg, params, device, card)
+    grads = phase_train_grad(cfg, params, fx, device, card)
+    kernels_only("train_parity", phase_train_parity, device, card)
+    dense_train = kernels_only("train_flagship", phase_train_flagship, device,
+                               card)
+    knn_train = kernels_only("train_flagship_knn", phase_train_flagship,
+                             device, card, SERVED_K, 1)
+    kernels_only("train_learned", phase_train_learned, device, card)
     log({"phase": "flagship_routes", "plain_edge_calls": plain_calls,
          "egcl_pair_launches_served": pair_launches,
          "egcl_knn_launches_served": knn_launches,
@@ -1349,11 +1757,15 @@ def main() -> int:
         {"name": "egcl_pair", "route": "cuda",
          "source": "diffusion_model_tpu_torch/csrc/egcl_pair.cu",
          "replaces": "diffusion_model_tpu/ops/egcl_pallas.py:171",
-         "launches": pair_launches, **pair},
+         "launches": pair_launches, **pair,
+         "train_launches": dense_train["launches"]["egcl_pair"],
+         "train_grad": grads["egcl_pair_64x16_bfloat16"]},
         {"name": "egcl_knn", "route": "cuda",
          "source": "diffusion_model_tpu_torch/csrc/egcl_knn.cu",
          "replaces": "diffusion_model_tpu/ops/egcl_pallas_sparse.py:177",
-         "launches": knn_launches, **knn},
+         "launches": knn_launches, **knn,
+         "train_launches": knn_train["launches"]["egcl_knn"],
+         "train_grad": grads["egcl_knn_64x16_k15_bfloat16"]},
         *probes,
     ]})
     print(card_line(), flush=True)

@@ -1,4 +1,8 @@
-"""Library surface of the port: conditional generation from a snapshot.
+"""Library surface of the port: training, and conditional generation from
+a snapshot.
+
+    trainer, state, (train, val, test) = train(cfg, graphs, run_dir)
+    # run_dir/params.npz: the eval parameters, as the JAX package saves them
 
     cfg = load_config_npz(path)
     params = load_params_npz(path)
@@ -20,6 +24,9 @@ kernel on the card); otherwise over the dense pair grid (``edge_fn``).
 
 from __future__ import annotations
 
+import json
+import os
+import time
 from typing import Callable, Optional, Union
 
 import numpy as np
@@ -27,6 +34,10 @@ import torch
 
 from diffusion_model_tpu_torch.config import Config
 from diffusion_model_tpu_torch.data.batch import collate
+from diffusion_model_tpu_torch.data.split import (
+    device_batch_iterator,
+    split_dataset,
+)
 from diffusion_model_tpu_torch.diffusion.process import (
     Schedule,
     learned_schedule,
@@ -43,8 +54,109 @@ from diffusion_model_tpu_torch.ops.egcl_knn import egcl_knn_edges
 from diffusion_model_tpu_torch.ops.egcl_pair import egcl_pair_edges
 from diffusion_model_tpu_torch.train.checkpoint import (
     gamma_state_dict_from_flax,
+    save_params_npz,
     state_dict_from_flax,
 )
+from diffusion_model_tpu_torch.train.loss import TrainNoise
+from diffusion_model_tpu_torch.train.trainer import (
+    EarlyStopping,
+    Trainer,
+    params_tree,
+)
+
+MAX_NAN_RECOVERIES = 10
+
+
+def prepare_dataset(graphs: list, cfg: Config) -> list:
+    """Spectra cut to ``spectrum_size``; single-atom graphs dropped."""
+    out = []
+    for g in graphs:
+        if np.asarray(g["pos"]).shape[0] <= 1:
+            continue
+        g = dict(g)
+        g["spectrum"] = np.asarray(g["spectrum"])[:, : cfg.spectrum_size]
+        out.append(g)
+    return out
+
+
+def fit_n_max(graphs: list, multiple: int = 8) -> int:
+    """Smallest padding size covering the dataset, rounded up to
+    ``multiple``."""
+    biggest = max(np.asarray(g["pos"]).shape[0] for g in graphs)
+    return int(-(-biggest // multiple) * multiple)
+
+
+def train(cfg: Config, dataset: list, run_dir: str,
+          num_epochs: Optional[int] = None, device=None,
+          noise: Optional[Callable[[int, str], object]] = None):
+    """Train from a fresh state, as ``diffusion_model_tpu.api.train``: the
+    dataset prepared and split 80/10/10 by ``cfg.seed``, collated once onto
+    the device, then per epoch the train batches in the order of seed
+    ``cfg.seed + epoch`` and the validation batches in order. A non-finite
+    epoch rolls back to the last good state (at most ``MAX_NAN_RECOVERIES``
+    times); ``EarlyStopping(cfg.patience)`` ends the run. Each epoch's
+    losses go to ``run_dir/metrics.jsonl``, the eval parameters to
+    ``run_dir/params.npz`` (float16, config embedded) at the end.
+
+    Runs on the card unless ``device`` names the CPU; the card's kernels
+    fail loudly, never falling back. ``noise(epoch, "train" | "eval")``
+    gives an epoch's noise source (default ``TrainNoise`` streams seeded
+    from ``cfg.seed``, the epoch and the phase).
+
+    Returns ``(trainer, state, (train_set, val_set, test_set))``.
+    """
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("api.train runs on the card and finds none; "
+                           "pass device='cpu' to train on the CPU")
+    if noise is None:
+        def noise(epoch, phase):
+            return TrainNoise((cfg.seed, epoch, int(phase == "eval")),
+                              device)
+    dataset = prepare_dataset(dataset, cfg)
+    train_set, val_set, test_set = split_dataset(dataset, cfg.seed)
+    trainer = Trainer(cfg, device=device)
+    state = trainer.init_state(cfg.seed)
+    os.makedirs(run_dir, exist_ok=True)
+    metrics_path = os.path.join(run_dir, "metrics.jsonl")
+    stopper = EarlyStopping(patience=cfg.patience)
+    epochs = cfg.num_epochs if num_epochs is None else num_epochs
+    nan_recoveries = 0
+    good = state.clone()
+    train_data = collate(train_set, cfg.n_max, device)
+    val_data = collate(val_set, cfg.n_max, device) if val_set else None
+    for epoch in range(epochs):
+        t0 = time.perf_counter()
+        batches = device_batch_iterator(train_data, cfg.batch_size,
+                                        seed=cfg.seed + epoch)
+        state, train_loss = trainer.train_epoch(state, noise(epoch, "train"),
+                                                batches)
+        if not np.isfinite(train_loss):
+            nan_recoveries += 1
+            _log(metrics_path, {"nan_recovery": nan_recoveries}, epoch)
+            if nan_recoveries > MAX_NAN_RECOVERIES:
+                raise RuntimeError(
+                    f"training diverged: {MAX_NAN_RECOVERIES} non-finite "
+                    "epochs")
+            state = trainer.restore(state, good)
+            continue
+        good = state.clone()
+        val_batches = (device_batch_iterator(val_data, cfg.batch_size)
+                       if val_data is not None else iter(()))
+        eval_loss = trainer.eval_epoch(state, noise(epoch, "eval"),
+                                       val_batches)
+        _log(metrics_path, {"train_loss": train_loss, "eval_loss": eval_loss,
+                            "epoch_s": time.perf_counter() - t0}, epoch)
+        if stopper.validate(eval_loss):
+            break
+    save_params_npz(params_tree(state.eval_params(cfg)),
+                    os.path.join(run_dir, "params.npz"), cfg=cfg)
+    return trainer, state, (train_set, val_set, test_set)
+
+
+def _log(path: str, record: dict, epoch: int) -> None:
+    with open(path, "a") as f:
+        f.write(json.dumps({**record, "step": epoch}) + "\n")
 
 
 def denoiser_from_params(cfg: Config, params: dict, device,
@@ -57,7 +169,7 @@ def denoiser_from_params(cfg: Config, params: dict, device,
     model = DiffusionDenoiser(cfg, edge_fn=edge_fn, knn_edge_fn=knn_edge_fn,
                               device=device)
     model.load_state_dict(state_dict_from_flax(params))
-    return model
+    return model.requires_grad_(False)
 
 
 def schedule_for(cfg: Config, params: dict, device) -> Schedule:
@@ -69,7 +181,7 @@ def schedule_for(cfg: Config, params: dict, device) -> Schedule:
     if "gamma" not in params:
         raise ValueError("noise_schedule='learned' needs the gamma network's "
                          "parameters, params['gamma']")
-    gamma = GammaNetwork(device=device)
+    gamma = GammaNetwork(device=device).requires_grad_(False)
     gamma.load_state_dict(gamma_state_dict_from_flax(params))
     return learned_schedule(gamma, cfg.num_diffusion_timestep, device)
 

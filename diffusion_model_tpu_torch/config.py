@@ -1,13 +1,15 @@
 """Configuration of the PyTorch port, read from a snapshot's embedded JSON.
 
 The fields and their defaults carry the names of ``diffusion_model_tpu.config``
-so one JSON describes both packages. Only the fields that conditional
-generation reads are here (dense topology, or kNN lists with the virtual
+so one JSON describes both packages. The fields here are those conditional
+generation and training read (dense topology, or kNN lists with the virtual
 node and the residual node update; the predefined or the learned noise
-schedule); ``from_dict`` ignores the rest (training knobs, the learned
-schedule's ``gamma_init``, initialisation scales, mesh settings) and raises
-``NotImplementedError`` for settings whose code path the port does not have
-yet. No yaml: PyTorch does not depend on PyYAML, so a module-level
+schedule; the optimizers, the loss's levers and the initialisers);
+``from_dict`` ignores the rest (mesh settings, orbax checkpoints, the
+distillation knobs) and raises ``NotImplementedError`` for settings whose
+code path the port does not have yet. ``train.Trainer`` refuses the
+training settings it has no path for (``kabsch_loss``, ``remat_egcl``, a
+mesh). No yaml: PyTorch does not depend on PyYAML, so a module-level
 ``import yaml`` would stop the port from importing on a machine that has
 only PyTorch and numpy.
 """
@@ -59,6 +61,32 @@ class Config:
     x_parameterization: str = "eps"
     diffuse_species: bool = True
     seed: int = 2024
+    # the learned schedule's start ("reference": VDM endpoints; "polynomial":
+    # fitted to the polynomial table) and its VDM boundary terms
+    gamma_init: str = "reference"
+    gamma_boundary_weight: float = 1.0
+    gamma_rec_floor: float = 0.01
+
+    # training
+    batch_size: int = 1
+    lr: float = 1e-5
+    weight_decay: float = 1e-12
+    max_grad_norm: float = 100.0
+    optimizer: str = "RAdamScheduleFree"   # or "Adam", "AdamW"
+    ema_decay: float = 0.0
+    num_epochs: int = 3000
+    patience: int = 5000
+    cond_dropout_prob: float = 0.0
+    t_bias_frac: float = 0.0
+    t_bias_lo: int = 100
+    t_bias_hi: int = 600
+    t_loss_weight: float = 1.0
+    zero_init_x: bool = True
+    h_init_scale: float = 1.0
+    # training paths the port does not have (train.Trainer refuses them)
+    kabsch_loss: bool = False
+    remat_egcl: bool = False
+    mesh_shape: Sequence[int] = ()
 
     # sampling
     guidance_scale: float = 0.0
@@ -100,6 +128,10 @@ class Config:
             raise ValueError(
                 f"noise_schedule={self.noise_schedule!r} must be "
                 "'predefined' or 'learned'")
+        if self.gamma_init not in ("reference", "polynomial"):
+            raise ValueError(
+                f"gamma_init={self.gamma_init!r} must be 'reference' or "
+                "'polynomial'")
         if self.sample_grid not in ("uniform", "snr"):
             raise ValueError(
                 f"sample_grid={self.sample_grid!r} must be 'uniform' or 'snr'")
@@ -128,6 +160,9 @@ class Config:
     def replace(self, **kwargs: Any) -> "Config":
         return dataclasses.replace(self, **kwargs)
 
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
 
 _FIELD_NAMES = {f.name for f in dataclasses.fields(Config)}
 
@@ -135,6 +170,7 @@ _FIELD_NAMES = {f.name for f in dataclasses.fields(Config)}
 def from_dict(d: dict) -> Config:
     """Build a Config from a dict, ignoring keys the port does not read."""
     known = {k: v for k, v in d.items() if k in _FIELD_NAMES}
-    if isinstance(known.get("compressor_hidden_dim"), list):
-        known["compressor_hidden_dim"] = tuple(known["compressor_hidden_dim"])
+    for key in ("compressor_hidden_dim", "mesh_shape"):
+        if isinstance(known.get(key), list):
+            known[key] = tuple(known[key])
     return Config(**known)

@@ -1,4 +1,5 @@
-"""Reverse steps of the joint (x, h) diffusion process on padded batches.
+"""Forward noising and reverse steps of the joint (x, h) diffusion process
+on padded batches.
 
 ``alphas[t]`` for t = 0..T is alpha_t and sigma_t = sqrt(1 - alpha_t^2),
 from the polynomial schedule or from a learned gamma network (where
@@ -7,9 +8,13 @@ The posterior mean of the t -> s = t-1 step is
 ``mu = z/alpha_ts - sigma2_ts * eps / (alpha_ts * sigma_t)`` with
 ``alpha_ts = alpha_t/alpha_s``, and the ancestral step adds
 ``sqrt(sigma2_ts * sigma2_s / sigma2_t)`` times fresh noise, CoM-free for
-positions. Noise is a standard-normal tensor handed in by the caller (the
-sampler draws it from an explicit ``torch.Generator``), so the same draws
-can be fed to the JAX package and to the port.
+positions. The forward process noises clean data to per-graph timesteps
+``t [B]`` (``diffuse_zero_to_t``, the training target). Noise is a
+standard-normal tensor handed in by the caller (the sampler and the trainer
+draw it from explicit ``torch.Generator`` objects), so the same draws can be fed
+to the JAX package and to the port. Timesteps are Python ints or integer
+tensors; per-graph coefficients broadcast over the node and feature axes
+(``_bcast``).
 """
 
 from __future__ import annotations
@@ -52,17 +57,37 @@ def predefined_schedule(cfg: Config, device=None) -> Schedule:
         power=cfg.noise_schedule_power, device=device))
 
 
-@torch.no_grad()
 def learned_schedule(gamma: GammaNetwork, num_timesteps: int,
                      device=None) -> Schedule:
     """Schedule from a gamma network: ``alpha_t = sqrt(sigmoid(-gamma(t/T)))``
     over JAX's ``linspace(0, 1, T+1)`` grid, float32, computed where
     ``gamma``'s parameters are and returned on ``device`` (default there).
+    The table keeps its graph to the gamma parameters where autograd
+    records, so the gamma network trains through the loss.
     """
     where = gamma.gamma_0.device
     t_grid = linspace_f32(0.0, 1.0, num_timesteps + 1, device=where)[:, None]
     alphas = torch.sqrt(torch.sigmoid(-gamma(t_grid)[:, 0]))
     return Schedule(alphas=alphas.to(where if device is None else device))
+
+
+def _bcast(coef: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Per-graph coefficients ``[B]`` (or a scalar) shaped to broadcast
+    over ``z``'s node and feature axes, in ``z``'s dtype."""
+    coef = torch.as_tensor(coef, device=z.device)
+    return coef.reshape(coef.shape + (1,) * (z.dim() - coef.dim())).to(
+        z.dtype)
+
+
+def diffuse_zero_to_t(schedule: Schedule, noise: torch.Tensor,
+                      z: torch.Tensor, t, mode: str = "pos",
+                      mask: Optional[torch.Tensor] = None):
+    """Forward-noise clean ``z [B, N, D]`` to timestep ``t`` (an int or
+    ``[B]``): ``(alpha_t z + sigma_t eps, eps)``, eps the raw draw ``noise``
+    made CoM-free ("pos") or masked ("h"): the training target."""
+    eps = shape_noise(noise, mode, mask)
+    return (_bcast(schedule.alpha(t), z) * z
+            + _bcast(schedule.sigma(t), z) * eps, eps)
 
 
 def shape_noise(noise: torch.Tensor, mode: str,
@@ -91,7 +116,8 @@ def calculate_mu(schedule: Schedule, z: torch.Tensor, eps: torch.Tensor,
     sq_sigma_s = 1.0 - alpha_s ** 2
     alpha_ts = alpha_t / alpha_s
     sq_sigma_ts = sq_sigma_t - alpha_ts ** 2 * sq_sigma_s
-    return z / alpha_ts - (sq_sigma_ts / (alpha_ts * sigma_t)) * eps
+    return z / _bcast(alpha_ts, z) - _bcast(
+        sq_sigma_ts / (alpha_ts * sigma_t), z) * eps
 
 
 def reverse_diffuse_one_step(schedule: Schedule, noise: Optional[torch.Tensor],

@@ -1,5 +1,6 @@
 """EELS spectrum compressor: a Linear/ReLU stack ``S -> hidden -> out``,
-applied per node over ``[..., S]`` spectra."""
+applied per node over ``[..., S]`` spectra, drawn as flax's ``Dense``
+(``lecun_normal`` weights, zero biases)."""
 
 from __future__ import annotations
 
@@ -7,6 +8,8 @@ from typing import Sequence
 
 import torch
 from torch import nn
+
+from diffusion_model_tpu_torch.nn.egnn import flax_dense
 
 
 class SpectrumCompressor(nn.Module):
@@ -17,8 +20,8 @@ class SpectrumCompressor(nn.Module):
         self.compute_dtype = compute_dtype
         widths = [in_dim, *hidden_dims]
         for i, (a, b) in enumerate(zip(widths[:-1], widths[1:])):
-            self.add_module(f"dense{i}", nn.Linear(a, b, device=device))
-        self.dense_out = nn.Linear(widths[-1], out_dim, device=device)
+            self.add_module(f"dense{i}", flax_dense(a, b, device))
+        self.dense_out = flax_dense(widths[-1], out_dim, device)
         self.num_hidden = len(hidden_dims)
 
     def forward(self, spectrum: torch.Tensor) -> torch.Tensor:

@@ -26,8 +26,10 @@ from diffusion_model_tpu_torch.ops.egcl_pair import egcl_pair_edges
 
 
 class DiffusionDenoiser(nn.Module):
-    """Parameters are frozen (``requires_grad=False``): the port serves
-    trained snapshots, and the edge kernels have no backward yet."""
+    """Parameters are drawn as ``DiffusionDenoiser.init`` of the JAX package
+    draws them (names and shapes of its tree, flax's initialisers) and are
+    trainable; ``api.denoiser_from_params`` freezes the weights it loads
+    for serving."""
 
     def __init__(self, cfg: Config, edge_fn: Callable = egcl_pair_edges,
                  knn_edge_fn: Callable = egcl_knn_edges, device=None):
@@ -44,8 +46,8 @@ class DiffusionDenoiser(nn.Module):
             cfg.x_hidden_size, cfg.h_hidden_size, compute_dtype=dt,
             edge_fn=edge_fn, knn_edge_fn=knn_edge_fn,
             h_residual=cfg.h_residual, virtual_node=cfg.virtual_node,
+            zero_init_x=cfg.zero_init_x, h_init_scale=cfg.h_init_scale,
             device=device)
-        self.requires_grad_(False)
 
     def forward(self, species_t, pos_t, spectrum, exo, t_norm, node_mask,
                 edges=None):

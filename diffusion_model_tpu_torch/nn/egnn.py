@@ -45,12 +45,14 @@ from torch import nn
 
 from diffusion_model_tpu_torch.ops import egcl_knn, egcl_pair
 from diffusion_model_tpu_torch.ops.com import masked_mean
+from diffusion_model_tpu_torch.ops.edge_grad import (
+    GRAPH_ARGS,
+    PLAIN_EDGE_ELEMENTS,
+    edge_chunks,
+)
 from diffusion_model_tpu_torch.ops.egcl_knn import egcl_knn_edges
 from diffusion_model_tpu_torch.ops.egcl_pair import egcl_pair_edges
 
-# The most elements one ``[B', T, N|K, F]`` edge intermediate of the plain
-# route may hold (float32: 64 MiB); ``plain_edges`` cuts its work to fit.
-PLAIN_EDGE_ELEMENTS = 1 << 24
 # Calls of the plain route in this process; only ``plain_edges`` adds to it.
 plain_edge_calls = 0
 
@@ -79,37 +81,55 @@ def plain_edges(reference: Callable, args: tuple, sources: int, width: int,
                 budget: int = PLAIN_EDGE_ELEMENTS):
     """``reference`` (``egcl_pair_edges_reference`` or
     ``egcl_knn_edges_reference``) over ``args``, in chunks of whole graphs,
-    or of one graph's targets where a graph is too large, so that no
-    ``[graphs, targets, sources, width]`` intermediate exceeds ``budget``
-    elements. The first six arguments of both are per graph. Returns
-    (m_sum [B,N,Fm], x_out [B,N,3]) float32, as the reference does."""
+    or of one graph's targets where a graph is too large (``ops.edge_grad.
+    edge_chunks``), so that no ``[graphs, targets, sources, width]``
+    intermediate exceeds ``budget`` elements. The first six arguments of
+    both are per graph. Returns (m_sum [B,N,Fm], x_out [B,N,3]) float32, as
+    the reference does; written chunk by chunk into fresh tensors, which
+    autograd follows."""
     global plain_edge_calls
     plain_edge_calls += 1
     b, n = args[0].shape[:2]
-    per_target = sources * width
-    graphs = max(1, min(b, budget // max(n * per_target, 1)))
-    targets = n if graphs * n * per_target <= budget else max(
-        1, budget // per_target)
     m_sum = x_out = None
-    for g0 in range(0, b, graphs):
-        g = slice(g0, min(b, g0 + graphs))
-        per_graph = tuple(a[g] for a in args[:6])
-        for t0 in range(0, n, targets):
-            t = slice(t0, min(n, t0 + targets))
-            m, x = reference(*per_graph, *args[6:], targets=t)
-            if m_sum is None:
-                m_sum = m.new_empty((b, n, m.shape[-1]))
-                x_out = x.new_empty((b, n, 3))
-            m_sum[g, t] = m
-            x_out[g, t] = x
+    for g, t in edge_chunks(b, n, sources, width, budget):
+        per_graph = tuple(a[g] for a in args[:GRAPH_ARGS])
+        m, x = reference(*per_graph, *args[GRAPH_ARGS:], targets=t)
+        if m_sum is None:
+            m_sum = m.new_empty((b, n, m.shape[-1]))
+            x_out = x.new_empty((b, n, 3))
+        m_sum[g, t] = m
+        x_out[g, t] = x
     return m_sum, x_out
 
 
-def _kernel_param(fan_in: int, fan_out: int, device) -> nn.Parameter:
-    """An ``[in, out]`` kernel, drawn N(0, 1/fan_in) until weights load."""
-    w = torch.empty(fan_in, fan_out, device=device)
-    nn.init.normal_(w, std=1.0 / math.sqrt(fan_in))
+def lecun_normal_(w: torch.Tensor, fan_in: int,
+                  scale: float = 1.0) -> torch.Tensor:
+    """Draw ``w`` in place as flax's ``variance_scaling(scale, "fan_in",
+    "truncated_normal")`` (``lecun_normal`` at scale 1): a normal cut at two
+    standard deviations, widened so its variance is ``scale / fan_in``. The
+    distribution is flax's; the bits are not (threefry is not Philox)."""
+    std = math.sqrt(scale / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std)
+
+
+def _kernel_param(fan_in: int, fan_out: int, device,
+                  zero: bool = False) -> nn.Parameter:
+    """An ``[in, out]`` kernel: zeros, or ``lecun_normal``."""
+    w = torch.zeros(fan_in, fan_out, device=device)
+    if not zero:
+        lecun_normal_(w, fan_in)
     return nn.Parameter(w)
+
+
+def flax_dense(fan_in: int, fan_out: int, device,
+               scale: float = 1.0) -> nn.Linear:
+    """``nn.Linear`` drawn as a flax ``Dense``: ``lecun_normal`` weight
+    (``variance_scaling(scale, ...)``), zero bias."""
+    layer = nn.Linear(fan_in, fan_out, device=device)
+    lecun_normal_(layer.weight, fan_in, scale)
+    nn.init.zeros_(layer.bias)
+    return layer
 
 
 class _EdgeFirstLayer(nn.Module):
@@ -135,10 +155,11 @@ class _GlobalFirstLayer(nn.Module):
     ``bias``, with the graph-constant ``h_v [B, 1, V]`` projected once per
     graph and broadcast over the nodes."""
 
-    def __init__(self, features: int, hdim: int, vdim: int, device=None):
+    def __init__(self, features: int, hdim: int, vdim: int, device=None,
+                 zero: bool = False):
         super().__init__()
         self.hdim, self.vdim = hdim, vdim
-        self.kernel = _kernel_param(hdim + vdim + 1, features, device)
+        self.kernel = _kernel_param(hdim + vdim + 1, features, device, zero)
         self.bias = nn.Parameter(torch.zeros(features, device=device))
 
     def cast(self, dt: torch.dtype) -> tuple:
@@ -157,9 +178,10 @@ class _KernelDense(nn.Module):
     read; the virtual-node channel applies it in ``forward``, with the
     weights its EGCL keeps cast)."""
 
-    def __init__(self, in_features: int, out_features: int, device=None):
+    def __init__(self, in_features: int, out_features: int, device=None,
+                 zero: bool = False):
         super().__init__()
-        self.kernel = _kernel_param(in_features, out_features, device)
+        self.kernel = _kernel_param(in_features, out_features, device, zero)
         self.bias = nn.Parameter(torch.zeros(out_features, device=device))
 
     def cast(self, dt: torch.dtype) -> tuple:
@@ -176,8 +198,8 @@ class _VectorHead(_KernelDense):
     functions apply it as a multiply-reduce in their epilogue; ``forward``
     is the same multiply-reduce."""
 
-    def __init__(self, features: int, device=None):
-        super().__init__(features, 1, device)
+    def __init__(self, features: int, device=None, zero: bool = False):
+        super().__init__(features, 1, device, zero)
 
     def cast(self, dt: torch.dtype) -> tuple:
         return self.kernel[:, 0].to(dt), self.bias.to(dt)
@@ -194,9 +216,12 @@ def _drop_cast(module: "EGCL", incompatible_keys) -> None:
 class EGCL(nn.Module):
     """One equivariant graph convolution layer (masked, dense or kNN).
 
-    The weights in the compute dtype are cast once and kept
-    (``compute_weights``): the parameters are frozen while the port serves,
-    and a cast a call was half of a served step's launches."""
+    While no autograd can see them, the weights in the compute dtype are
+    cast once and kept (``compute_weights``): a cast a call was half of a
+    served step's launches. Parameters are drawn as flax draws them:
+    ``lecun_normal`` kernels, zero biases, the coordinate MLP's last layer
+    zero with ``zero_init_x``, the node MLP's output kernel at variance
+    ``h_init_scale / fan_in``, the virtual node's two output heads zero."""
 
     def __init__(self, hdim: int, m_hidden: int, m_out: int, x_hidden: int,
                  h_hidden: int, h_out: int,
@@ -204,6 +229,7 @@ class EGCL(nn.Module):
                  edge_fn: Callable = egcl_pair_edges,
                  knn_edge_fn: Callable = egcl_knn_edges,
                  h_residual: bool = False, virtual_node: bool = False,
+                 zero_init_x: bool = True, h_init_scale: float = 1.0,
                  device=None):
         super().__init__()
         self.compute_dtype = compute_dtype
@@ -216,15 +242,16 @@ class EGCL(nn.Module):
         self.attention_dense = _VectorHead(m_out, device)
         self.mlp_x_dense0 = _EdgeFirstLayer(x_hidden, hdim, device)
         self.mlp_x_dense1 = _KernelDense(x_hidden, x_hidden, device)
-        self.mlp_x_dense2 = _VectorHead(x_hidden, device)
-        self.mlp_h_dense0 = nn.Linear(hdim + m_out, h_hidden, device=device)
-        self.mlp_h_dense1 = nn.Linear(h_hidden, h_out, device=device)
+        self.mlp_x_dense2 = _VectorHead(x_hidden, device, zero_init_x)
+        self.mlp_h_dense0 = flax_dense(hdim + m_out, h_hidden, device)
+        self.mlp_h_dense1 = flax_dense(h_hidden, h_out, device, h_init_scale)
         if virtual_node:
             self.vnode_in = _KernelDense(hdim + 1, m_hidden, device)
             self.vnode_pool = _KernelDense(m_hidden, m_out, device)
-            self.vnode_out = _GlobalFirstLayer(m_out, hdim, m_out, device)
+            self.vnode_out = _GlobalFirstLayer(m_out, hdim, m_out, device,
+                                               zero=True)
             self.vnode_x = _GlobalFirstLayer(x_hidden, hdim, m_out, device)
-            self.vnode_x_head = _VectorHead(x_hidden, device)
+            self.vnode_x_head = _VectorHead(x_hidden, device, zero=True)
         self._cast_key = None
         self._cast = None
         self.register_load_state_dict_post_hook(_drop_cast)
@@ -234,32 +261,43 @@ class EGCL(nn.Module):
         self._cast_key = self._cast = None
 
     def compute_weights(self, dt: torch.dtype) -> dict:
-        """The weights as the forward uses them, cast to ``dt`` at the first
-        call and kept. Cast again when ``dt``, the device or any parameter
-        changes (its storage or its version counter, which every in-place
-        write bumps), and after ``load_state_dict``."""
+        """The weights as the forward uses them, in ``dt``.
+
+        Where autograd records (grad mode on and a parameter requires grad)
+        they are cast anew at every call, inside the graph, as the JAX
+        package's ``model.apply`` casts inside the traced function. Else
+        they are cast at the first call and kept, as ``nn/fast_apply.py``
+        casts once for sampling: cast again when ``dt``, the device or any
+        parameter changes (its storage or its version counter, which every
+        in-place write bumps), and after ``load_state_dict``. A kept cast
+        has no graph, so it never reaches a training forward."""
         params = tuple(self.parameters())
+        if torch.is_grad_enabled() and any(p.requires_grad for p in params):
+            return self._cast_weights(dt)
         key = (dt, params[0].device,
                tuple((p.data_ptr(), p._version) for p in params))
         if key != self._cast_key:
-            f32 = torch.float32
-            m1, x1 = self.mlp_m_dense1, self.mlp_x_dense1
-            att, x2 = self.attention_dense, self.mlp_x_dense2
-            h0, h1 = self.mlp_h_dense0, self.mlp_h_dense1
-            w = {"m_first": self.mlp_m_dense0.cast(dt),
-                 "x_first": self.mlp_x_dense0.cast(dt),
-                 "heads": (m1.kernel.to(dt), m1.bias.to(f32).unsqueeze(0),
-                           att.kernel.to(f32), att.bias.to(f32).unsqueeze(0),
-                           x1.kernel.to(dt), x1.bias.to(f32).unsqueeze(0),
-                           x2.kernel.to(f32), x2.bias.to(f32).unsqueeze(0)),
-                 "h0": (h0.weight.to(dt), h0.bias.to(dt)),
-                 "h1": (h1.weight.to(dt), h1.bias.to(dt))}
-            if self.virtual_node:
-                w.update({name: getattr(self, name).cast(dt) for name in (
-                    "vnode_in", "vnode_pool", "vnode_out", "vnode_x",
-                    "vnode_x_head")})
-            self._cast, self._cast_key = w, key
+            self._cast, self._cast_key = self._cast_weights(dt), key
         return self._cast
+
+    def _cast_weights(self, dt: torch.dtype) -> dict:
+        f32 = torch.float32
+        m1, x1 = self.mlp_m_dense1, self.mlp_x_dense1
+        att, x2 = self.attention_dense, self.mlp_x_dense2
+        h0, h1 = self.mlp_h_dense0, self.mlp_h_dense1
+        w = {"m_first": self.mlp_m_dense0.cast(dt),
+             "x_first": self.mlp_x_dense0.cast(dt),
+             "heads": (m1.kernel.to(dt), m1.bias.to(f32).unsqueeze(0),
+                       att.kernel.to(f32), att.bias.to(f32).unsqueeze(0),
+                       x1.kernel.to(dt), x1.bias.to(f32).unsqueeze(0),
+                       x2.kernel.to(f32), x2.bias.to(f32).unsqueeze(0)),
+             "h0": (h0.weight.to(dt), h0.bias.to(dt)),
+             "h1": (h1.weight.to(dt), h1.bias.to(dt))}
+        if self.virtual_node:
+            w.update({name: getattr(self, name).cast(dt) for name in (
+                "vnode_in", "vnode_pool", "vnode_out", "vnode_x",
+                "vnode_x_head")})
+        return w
 
     def forward(self, h: torch.Tensor, x: torch.Tensor,
                 node_mask: torch.Tensor, edges=None):
@@ -340,6 +378,7 @@ class EquivariantGNN(nn.Module):
                  edge_fn: Callable = egcl_pair_edges,
                  knn_edge_fn: Callable = egcl_knn_edges,
                  h_residual: bool = False, virtual_node: bool = False,
+                 zero_init_x: bool = True, h_init_scale: float = 1.0,
                  device=None):
         super().__init__()
         self.L = L
@@ -348,7 +387,8 @@ class EquivariantGNN(nn.Module):
                 hdim, m_hidden, m_out, x_hidden, h_hidden, hdim,
                 compute_dtype=compute_dtype, edge_fn=edge_fn,
                 knn_edge_fn=knn_edge_fn, h_residual=h_residual,
-                virtual_node=virtual_node, device=device))
+                virtual_node=virtual_node, zero_init_x=zero_init_x,
+                h_init_scale=h_init_scale, device=device))
 
     def forward(self, h: torch.Tensor, x: torch.Tensor,
                 node_mask: torch.Tensor, edges=None):

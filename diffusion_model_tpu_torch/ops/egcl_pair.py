@@ -25,8 +25,13 @@ padded grid with plain FMAs. ``last_rows`` holds the tile rows the last
 launch computed (an int32 on the card).
 
 On CPU tensors ``egcl_pair_edges`` runs ``egcl_pair_edges_reference``; on
-CUDA tensors it launches the kernel or raises. Serving needs no gradient, so
-an input that requires grad is refused.
+CUDA tensors it launches the kernel or raises. Where autograd records (grad
+mode on and an input requires grad) it runs through ``ops.edge_grad.
+EdgeFunction``, the port of the JAX package's ``custom_vjp``
+(``ops/egcl_pallas.py:290-322``): the kernel (or the plain statement on the
+CPU) forward on detached inputs, autograd of the plain statement in float32
+backward. The launch itself (``_launch``) refuses an input that requires
+grad.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from diffusion_model_tpu_torch.ops import _tiles
+from diffusion_model_tpu_torch.ops.edge_grad import EdgeFunction, wants_grad
 
 # Launches of the CUDA kernel in this process; only egcl_pair_edges adds to
 # it, right after a launch was accepted.
@@ -141,7 +147,8 @@ def _check(tensors: dict) -> torch.dtype:
             raise ValueError(f"{name} is not 16-byte aligned")
         if t.requires_grad:
             raise ValueError(
-                f"{name} requires grad: the kernel has no backward yet")
+                f"{name} requires grad: the launch takes detached inputs "
+                f"(the edge function pairs it with its backward)")
     return cdt
 
 
@@ -178,16 +185,31 @@ def egcl_pair_edges(am_i, am_j, ax_i, ax_j, x, mask, w_dm, w_dx, w2m, b2m,
         float32.
 
     Returns:
-      (m_sum ``[B, N, Fm]`` float32, x_out ``[B, N, 3]`` float32).
+      (m_sum ``[B, N, Fm]`` float32, x_out ``[B, N, 3]`` float32),
+      differentiable in every input but ``mask`` where autograd records.
     """
-    global egcl_pair_launches, last_rows
     args = (am_i, am_j, ax_i, ax_j, x, mask, w_dm, w_dx, w2m, b2m, wa, ba,
             w2x, b2x, wx3, bx3)
     device = am_i.device
     if device.type == "cpu":
-        return egcl_pair_edges_reference(*args)
-    if device.type != "cuda":
+        forward = egcl_pair_edges_reference
+    elif device.type == "cuda":
+        forward = _launch
+    else:
         raise ValueError(f"no EGCL pair kernel for device {device}")
+    if wants_grad(args):
+        return EdgeFunction.apply(forward, egcl_pair_edges_reference,
+                                  am_i.shape[1],
+                                  max(w2x.shape[-1], w2m.shape[-1]), (5,),
+                                  *args)
+    return forward(*(a.detach() for a in args))
+
+
+def _launch(*args):
+    """The kernel on CUDA tensors that require no grad, or raise."""
+    global egcl_pair_launches, last_rows
+    am_i, w2m = args[0], args[8]
+    device = am_i.device
     tensors = dict(zip(_NAMES, args))
     cdt = _check(tensors)
     b, n, f1 = am_i.shape

@@ -4,12 +4,16 @@ A snapshot written by ``diffusion_model_tpu.train.checkpoint.save_params_npz``
 holds the flattened flax parameter tree (``denoiser/params/egnn/egcl_0/
 mlp_m_dense0/kernel`` ..., and ``gamma/params/...`` for a learned noise
 schedule) and the run's config as a JSON string under ``__config_json__``.
-Both load here with numpy alone.
+Both load here with numpy alone. ``save_params_npz`` writes the same format
+from the port's modules (``flax_from_state_dict`` is the inverse of
+``state_dict_from_flax``), so a snapshot either package writes loads
+unchanged in both.
 """
 
 from __future__ import annotations
 
 import json
+import os
 from typing import Optional
 
 import numpy as np
@@ -86,13 +90,22 @@ def state_dict_from_flax(tree: dict) -> dict:
     params = tree.get("denoiser", tree)["params"]
     out = {}
     for key, value in _flatten(params).items():
-        module_path, leaf = key.rsplit("/", 1)
         t = torch.from_numpy(np.array(value, np.float32))
-        if _is_linear(module_path):
-            if leaf == "kernel":
-                leaf, t = "weight", t.T
-        out[f"{module_path.replace('/', '.')}.{leaf}"] = t.contiguous()
+        if _is_linear(key.rsplit("/", 1)[0]) and key.endswith("/kernel"):
+            t = t.T
+        out[port_name(key)] = t.contiguous()
     return out
+
+
+def port_name(path: str) -> str:
+    """The ``DiffusionDenoiser`` state-dict name of a flax parameter path
+    under ``params`` (``egnn/egcl_0/mlp_h_dense0/kernel`` ->
+    ``egnn.egcl_0.mlp_h_dense0.weight``; the value is transposed where the
+    leaf is an ``nn.Linear`` kernel)."""
+    module_path, leaf = path.rsplit("/", 1)
+    if _is_linear(module_path) and leaf == "kernel":
+        leaf = "weight"
+    return f"{module_path.replace('/', '.')}.{leaf}"
 
 
 def gamma_state_dict_from_flax(tree: dict) -> dict:
@@ -106,3 +119,49 @@ def gamma_state_dict_from_flax(tree: dict) -> dict:
     """
     return {key.replace("/", "."): torch.from_numpy(np.array(v, np.float32))
             for key, v in _flatten(tree["gamma"]["params"]).items()}
+
+
+def flax_from_state_dict(state_dict: dict) -> dict:
+    """The flax parameter tree ``{"params": ...}`` of a ``DiffusionDenoiser``
+    state dict (or a dict of its named parameters): the inverse of
+    ``state_dict_from_flax``, as float32 numpy arrays."""
+    tree: dict = {}
+    for key, value in state_dict.items():
+        module_path, leaf = key.rsplit(".", 1)
+        v = value.detach().to("cpu", torch.float32).numpy()
+        if _is_linear(module_path.replace(".", "/")) and leaf == "weight":
+            leaf, v = "kernel", v.T
+        node = tree
+        for p in module_path.split("."):
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(v)
+    return {"params": tree}
+
+
+def gamma_flax_from_state_dict(state_dict: dict) -> dict:
+    """The flax tree ``{"params": ...}`` of a ``GammaNetwork`` state dict:
+    the inverse of ``gamma_state_dict_from_flax``."""
+    tree: dict = {}
+    for key, value in state_dict.items():
+        node = tree
+        parts = key.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value.detach().to("cpu", torch.float32).numpy()
+    return {"params": tree}
+
+
+def save_params_npz(params: dict, path: str, dtype="float16",
+                    cfg: Optional[Config] = None) -> int:
+    """Save a nested parameter tree (``{"denoiser": {"params": ...}}`` and,
+    for a learned schedule, ``"gamma"``) as a compressed flat ``.npz``, as
+    the JAX package's ``save_params_npz``: ``dtype`` is the storage dtype,
+    and ``cfg`` is embedded as JSON (a unicode scalar, loadable without
+    pickle). Returns the number of parameter arrays."""
+    flat = {k: np.asarray(v).astype(dtype) for k, v in _flatten(params).items()}
+    n = len(flat)
+    if cfg is not None:
+        flat[_CONFIG_KEY] = np.array(json.dumps(cfg.to_dict()))
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez_compressed(path, **flat)
+    return n

@@ -1,0 +1,372 @@
+"""Training engine of the port: optimizer factory, train and eval steps,
+epochs, early stopping, as ``diffusion_model_tpu/train/trainer.py``.
+
+The optimizers are optax's rules (``train.optim``): global-norm clipping,
+then Adam with coupled L2, AdamW with amsgrad, or schedule-free RAdam
+(``optax.contrib.schedule_free`` over ``radam(lr, b1=0)``), and optionally
+an EMA of the parameters. Evaluation runs at ``TrainState.eval_params``: the
+EMA, the schedule-free average x, or the parameters.
+
+The denoiser's dense route is the pair kernel (K1) and its kNN route the kNN
+kernel (K2), each paired with the autograd of its plain statement
+(``ops.edge_grad``), as the JAX package pairs its Pallas kernels in a
+``custom_vjp``. On the CPU every step is plain PyTorch. A learned schedule's
+gamma network trains through the loss jointly with the denoiser, with the
+VDM boundary terms (``_gamma_boundary``).
+
+Random draws come from a noise source (``train.loss.TrainNoise``); the loss
+of an epoch is summed on the device and read once at its end.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Iterable, Optional
+
+import torch
+
+from diffusion_model_tpu_torch.config import Config
+from diffusion_model_tpu_torch.data.batch import GraphBatch
+from diffusion_model_tpu_torch.diffusion.process import (
+    Schedule,
+    learned_schedule,
+    predefined_schedule,
+)
+from diffusion_model_tpu_torch.nn.denoiser import DiffusionDenoiser
+from diffusion_model_tpu_torch.nn.gamma import (
+    GammaNetwork,
+    fit_gamma_to_schedule,
+)
+from diffusion_model_tpu_torch.ops.edges import knn_edges
+from diffusion_model_tpu_torch.ops.egcl_knn import egcl_knn_edges
+from diffusion_model_tpu_torch.ops.egcl_pair import egcl_pair_edges
+from diffusion_model_tpu_torch.train import optim
+from diffusion_model_tpu_torch.train.checkpoint import (
+    flax_from_state_dict,
+    gamma_flax_from_state_dict,
+    gamma_state_dict_from_flax,
+    state_dict_from_flax,
+)
+from diffusion_model_tpu_torch.train.loss import (
+    diffuse_batch,
+    epsilon_loss,
+    t_band_weights,
+)
+
+# Training paths of the JAX package that the port does not have, and the
+# ROADMAP.md queue 1 item that holds each.
+_NOT_PORTED = (
+    ("kabsch_loss", "the Kabsch coordinate loss (ops/kabsch.py and a "
+     "differentiable sampler), ROADMAP.md queue 1 item 5"),
+    ("remat_egcl", "rematerialised EGCL layers (torch.utils.checkpoint), "
+     "ROADMAP.md queue 1 item 5"),
+    ("mesh_shape", "data-parallel training on a mesh, ROADMAP.md queue 1 "
+     "item 6"),
+)
+
+
+def make_optimizer(cfg: Config) -> optim.Transform:
+    """Adam / AdamW(amsgrad) / schedule-free RAdam after global-norm
+    clipping at ``max_grad_norm``, with an EMA tail where ``ema_decay`` > 0
+    (not with schedule-free, which averages already). As in the JAX
+    package, schedule-free applies no ``weight_decay``."""
+    lr = cfg.lr
+    if cfg.optimizer == "Adam":
+        base = optim.chain(optim.scale_by_adam(), optim.scale(-lr))
+        if cfg.weight_decay:
+            base = optim.chain(optim.add_decayed_weights(cfg.weight_decay),
+                               base)
+    elif cfg.optimizer == "AdamW":
+        base = optim.chain(optim.scale_by_amsgrad(),
+                           optim.add_decayed_weights(cfg.weight_decay),
+                           optim.scale(-lr))
+    elif cfg.optimizer == "RAdamScheduleFree":
+        base = optim.schedule_free(
+            optim.chain(optim.scale_by_radam(b1=0.0), optim.scale(-lr)), lr)
+    else:
+        raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+    parts = [optim.clip_by_global_norm(cfg.max_grad_norm), base]
+    if cfg.ema_decay > 0.0:
+        if cfg.optimizer == "RAdamScheduleFree":
+            raise ValueError(
+                "ema_decay > 0 is redundant with RAdamScheduleFree's "
+                "built-in averaging; use optimizer='Adam'/'AdamW' with EMA")
+        parts.append(optim.ema(cfg.ema_decay))
+    return optim.chain(*parts)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """``params``: name -> the trained modules' own parameters
+    (``denoiser.*``, ``gamma.*``), updated in place; ``opt_state``: the
+    optimizer's state; ``step``: updates taken."""
+
+    params: dict
+    opt_state: Any
+    step: int = 0
+
+    def eval_params(self, cfg: Config) -> dict:
+        """The parameters to evaluate and sample at: the EMA, the
+        schedule-free average ``(y - (1 - b1) z) / b1``, or the
+        parameters themselves."""
+        if cfg.ema_decay > 0.0:
+            return self.opt_state[-1].ema
+        if cfg.optimizer == "RAdamScheduleFree":
+            return optim.schedule_free_eval_params(self.opt_state[1],
+                                                   self.params)
+        return {k: p.detach() for k, p in self.params.items()}
+
+    def clone(self) -> "TrainState":
+        """A copy of the values (parameters and optimizer state)."""
+        return TrainState({k: p.detach().clone()
+                           for k, p in self.params.items()},
+                          _clone_tree(self.opt_state), self.step)
+
+
+def _clone_tree(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().clone()
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_clone_tree(v) for v in tree))
+    if isinstance(tree, tuple):
+        return tuple(_clone_tree(v) for v in tree)
+    return tree
+
+
+def params_tree(params: dict) -> dict:
+    """Name -> tensor (``denoiser.*``, ``gamma.*``) as the flax tree the
+    snapshots hold: ``{"denoiser": {"params": ...}, "gamma": ...}``."""
+    def part(prefix):
+        return {k[len(prefix):]: v for k, v in params.items()
+                if k.startswith(prefix)}
+
+    tree = {"denoiser": flax_from_state_dict(part("denoiser."))}
+    gamma = part("gamma.")
+    if gamma:
+        tree["gamma"] = gamma_flax_from_state_dict(gamma)
+    return tree
+
+
+class EarlyStopping:
+    """Stop when the eval loss has not improved for ``patience`` epochs."""
+
+    def __init__(self, patience: int = 0):
+        self._step = 0
+        self._loss = float("inf")
+        self._patience = patience
+
+    def validate(self, loss: float) -> bool:
+        if self._loss < loss:
+            self._step += 1
+            if self._step > self._patience:
+                return True
+        else:
+            self._step = 0
+            self._loss = loss
+        return False
+
+
+class Trainer:
+    """Owns the denoiser (and the gamma network of a learned schedule), the
+    optimizer and their train and eval steps on ``device`` (default the
+    card; the CPU only when asked for)."""
+
+    def __init__(self, cfg: Config, device=None,
+                 edge_fn: Callable = egcl_pair_edges,
+                 knn_edge_fn: Callable = egcl_knn_edges):
+        for name, what in _NOT_PORTED:
+            if getattr(cfg, name):
+                raise NotImplementedError(
+                    f"{name}={getattr(cfg, name)!r}: {what} is not ported")
+        self.cfg = cfg
+        self.device = torch.device("cuda" if device is None else device)
+        self.optimizer = make_optimizer(cfg)
+        self._modules = lambda: DiffusionDenoiser(
+            cfg, edge_fn=edge_fn, knn_edge_fn=knn_edge_fn,
+            device=self.device)
+        self.model: Optional[DiffusionDenoiser] = None
+        self.gamma: Optional[GammaNetwork] = None
+        self._eval_model = self._eval_gamma = None
+        self._static_schedule = (
+            predefined_schedule(cfg, device=self.device)
+            if cfg.noise_schedule == "predefined" else None)
+
+    # -- init ----------------------------------------------------------
+    def init_state(self, seed: int, params: Optional[dict] = None,
+                   skip_gamma_fit: bool = False) -> TrainState:
+        """A fresh state: the modules drawn from ``seed`` (the gamma network
+        then fitted to the polynomial table where ``gamma_init`` says so,
+        unless ``skip_gamma_fit``), or holding ``params`` (a flax tree as
+        the snapshots hold, ``{"denoiser": ..., "gamma": ...}``), and a
+        fresh optimizer state."""
+        learned = self.cfg.noise_schedule == "learned"
+        devices = [self.device] if self.device.type == "cuda" else []
+        with torch.random.fork_rng(devices=devices):
+            torch.manual_seed(seed)
+            self.model = self._modules()
+            self.gamma = GammaNetwork(device=self.device) if learned else None
+        if params is not None:
+            self.model.load_state_dict(state_dict_from_flax(params))
+            if learned:
+                self.gamma.load_state_dict(gamma_state_dict_from_flax(params))
+        elif learned and self.cfg.gamma_init == "polynomial" \
+                and not skip_gamma_fit:
+            fit_gamma_to_schedule(self.gamma, predefined_schedule(
+                self.cfg, device=self.device).alphas)
+        named = {f"denoiser.{k}": p for k, p in self.model.named_parameters()}
+        if learned:
+            named.update({f"gamma.{k}": p
+                          for k, p in self.gamma.named_parameters()})
+        return TrainState(named, self.optimizer.init(named))
+
+    # -- schedule ------------------------------------------------------
+    def schedule_for(self, gamma: Optional[GammaNetwork]) -> Schedule:
+        if self._static_schedule is not None:
+            return self._static_schedule
+        return learned_schedule(gamma, self.cfg.num_diffusion_timestep)
+
+    # -- loss ----------------------------------------------------------
+    def _loss(self, model, gamma, noise, batch: GraphBatch):
+        """(loss, sum_sq, num_nodes) of ``model`` on ``batch`` noised by
+        ``noise``'s draws."""
+        cfg = self.cfg
+        schedule = self.schedule_for(gamma)
+        pos_t, h_t, t, eps_pos, eps_h = diffuse_batch(schedule, cfg, noise,
+                                                      batch)
+        b, n = batch.mask.shape
+        t_norm = (t.to(torch.float32)[:, None, None]
+                  / cfg.num_diffusion_timestep) * torch.ones(
+                      (b, n, 1), device=batch.device)
+        t_norm = t_norm * batch.mask.unsqueeze(-1)
+        edges = (knn_edges(pos_t.detach(), batch.mask, cfg.neighbor_k)
+                 if cfg.neighbor_k else None)
+        spectrum = batch.spectrum
+        if cfg.cond_dropout_prob > 0:
+            keep = noise.bernoulli("drop", 1.0 - cfg.cond_dropout_prob, (b,))
+            spectrum = spectrum * keep[:, None, None].to(spectrum.dtype)
+        eps_x_pred, eps_h_pred = model(h_t, pos_t, spectrum, batch.exo,
+                                       t_norm, batch.mask, edges)
+        loss, sum_sq, num_nodes = epsilon_loss(
+            eps_x_pred, eps_h_pred, eps_pos, eps_h, batch.mask,
+            include_h=cfg.diffuse_species, weights=t_band_weights(cfg, t))
+        if gamma is not None and cfg.gamma_boundary_weight > 0:
+            loss = loss + cfg.gamma_boundary_weight * self._gamma_boundary(
+                schedule, batch)
+        return loss, sum_sq, num_nodes
+
+    def _gamma_boundary(self, schedule: Schedule, batch: GraphBatch):
+        """The VDM boundary terms of a learned schedule (reconstruction at
+        t = 0, prior KL at t = T), per real dimension, hinged at their
+        clean-endpoint values and normalised as the eps loss is (summed
+        over real dimensions, over the real graphs); gradients reach only
+        the gamma parameters."""
+        cfg = self.cfg
+        a0 = schedule.alpha(0)
+        a_t = schedule.alpha(cfg.num_diffusion_timestep)
+        s0_sq = 1.0 - a0 ** 2
+        st_sq = 1.0 - a_t ** 2
+        d2 = cfg.gamma_rec_floor ** 2
+        m3 = batch.mask.unsqueeze(-1)
+        dims = 3.0 + (cfg.atom_type_size if cfg.diffuse_species else 0.0)
+        n_dims = batch.mask.sum() * dims
+        x2_sum = ((batch.pos ** 2) * m3).sum()
+        if cfg.diffuse_species:
+            x2_sum = x2_sum + ((batch.species ** 2) * m3).sum()
+        rec = torch.maximum(0.5 * torch.log((s0_sq + d2) / a0 ** 2),
+                            torch.log(torch.tensor(2.0 * d2)).to(a0) * 0.5)
+        prior = torch.clamp_min(
+            0.5 * (a_t ** 2 * (x2_sum / n_dims.clamp_min(1.0))
+                   + st_sq - 1.0 - torch.log(st_sq)), 1e-4)
+        num_graphs = (batch.mask > 0).any(dim=-1).to(
+            x2_sum.dtype).sum().clamp_min(1.0)
+        return (rec + prior) * n_dims / num_graphs
+
+    # -- steps ---------------------------------------------------------
+    def loss_and_grads(self, state: TrainState, noise, batch: GraphBatch):
+        """(loss, sum_sq, num_nodes, grads name -> tensor) at the trained
+        modules' parameters."""
+        loss, sum_sq, num_nodes = self._loss(self.model, self.gamma, noise,
+                                             batch)
+        params = state.params
+        parts = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(params.items(), parts)}
+        return loss.detach(), sum_sq.detach(), num_nodes, grads
+
+    def train_step(self, state: TrainState, noise, batch: GraphBatch):
+        """One optimizer step: (state, metrics ``loss``, ``sum_sq``,
+        ``num_nodes``, ``grad_norm``, all tensors on the device)."""
+        loss, sum_sq, num_nodes, grads = self.loss_and_grads(state, noise,
+                                                             batch)
+        updates, opt_state = self.optimizer.update(grads, state.opt_state,
+                                                   state.params)
+        optim.apply_updates(state.params, updates)
+        metrics = {"loss": loss, "sum_sq": sum_sq, "num_nodes": num_nodes,
+                   "grad_norm": optim.global_norm(grads)}
+        return TrainState(state.params, opt_state, state.step + 1), metrics
+
+    def _load_eval(self, params: dict) -> tuple:
+        """The frozen evaluation modules, holding ``params``."""
+        if self._eval_model is None:
+            self._eval_model = self._modules().requires_grad_(False)
+            if self.gamma is not None:
+                self._eval_gamma = GammaNetwork(
+                    device=self.device).requires_grad_(False)
+        modules = {"denoiser.": self._eval_model, "gamma.": self._eval_gamma}
+        with torch.no_grad():
+            for prefix, module in modules.items():
+                if module is None:
+                    continue
+                for k, p in module.named_parameters():
+                    p.copy_(params[prefix + k])
+        return self._eval_model, self._eval_gamma
+
+    def eval_step(self, state: TrainState, noise, batch: GraphBatch) -> dict:
+        """``sum_sq`` and ``num_nodes`` at ``state.eval_params``."""
+        return self._eval_batch(self._load_eval(state.eval_params(self.cfg)),
+                                noise, batch)
+
+    @torch.no_grad()
+    def _eval_batch(self, modules, noise, batch) -> dict:
+        _, sum_sq, num_nodes = self._loss(*modules, noise, batch)
+        return {"sum_sq": sum_sq, "num_nodes": num_nodes}
+
+    def ring_train_step_fn(self, *args, **kwargs):
+        raise NotImplementedError(
+            "ring (node-sharded) training is not ported: ROADMAP.md queue 1 "
+            "item 5")
+
+    # -- epochs --------------------------------------------------------
+    def train_epoch(self, state: TrainState, noise,
+                    batches: Iterable[GraphBatch]) -> tuple:
+        """One pass over ``batches``: (state, summed squared error per real
+        node), the sums kept on the device and read once."""
+        total = torch.zeros(2, device=self.device)
+        for batch in batches:
+            state, m = self.train_step(state, noise, batch)
+            total = total + torch.stack([m["sum_sq"], m["num_nodes"]])
+        sq, nodes = total.tolist()
+        return state, sq / max(nodes, 1.0)
+
+    def eval_epoch(self, state: TrainState, noise,
+                   batches: Iterable[GraphBatch]) -> float:
+        """Summed squared error per real node at ``state.eval_params``."""
+        modules = self._load_eval(state.eval_params(self.cfg))
+        total = torch.zeros(2, device=self.device)
+        for batch in batches:
+            m = self._eval_batch(modules, noise, batch)
+            total = total + torch.stack([m["sum_sq"], m["num_nodes"]])
+        sq, nodes = total.tolist()
+        return sq / max(nodes, 1.0)
+
+    @torch.no_grad()
+    def restore(self, state: TrainState, saved: TrainState) -> TrainState:
+        """``state`` with the values of ``saved`` (a ``clone``) written back
+        into the trained modules' parameters."""
+        for k, p in state.params.items():
+            p.copy_(saved.params[k])
+        return TrainState(state.params, _clone_tree(saved.opt_state),
+                          saved.step)

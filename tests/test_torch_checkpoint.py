@@ -59,7 +59,14 @@ def test_state_dict_loads_strictly_into_the_denoiser():
         port_ckpt.load_params_npz(str(SNAPSHOT)))
     model.load_state_dict(sd)   # strict: names and shapes all match
     w = model.egnn.egcl_0.mlp_x_dense1.kernel
-    assert tuple(w.shape) == (1024, 1024) and not w.requires_grad
+    # a fresh denoiser trains; the one api.denoiser_from_params serves
+    # from the same tree is frozen
+    assert tuple(w.shape) == (1024, 1024) and w.requires_grad
+    from diffusion_model_tpu_torch.api import denoiser_from_params
+
+    served = denoiser_from_params(cfg, port_ckpt.load_params_npz(
+        str(SNAPSHOT)), "cpu")
+    assert not any(p.requires_grad for p in served.parameters())
 
 
 def test_config_matches_jax_field_for_field():
@@ -138,7 +145,9 @@ def test_learned_schedule_settings_carry_over():
     got, want = port_config.from_dict(d), jax_from_dict(d)
     assert got.noise_schedule == want.noise_schedule == "learned"
     assert got.snapshot_every == want.snapshot_every == 7
-    assert not hasattr(got, "gamma_init")
+    # the learned recipe's training settings carry over too
+    assert got.gamma_init == want.gamma_init == "polynomial"
+    assert got.gamma_boundary_weight == want.gamma_boundary_weight == 2.0
     assert port_config.Config().snapshot_every == 100
 
 

@@ -119,8 +119,9 @@ def test_kernel_is_deterministic(cuda_device):
 def test_grad_inputs_refused_on_the_card(cuda_device):
     args = list(edge_args(edge_inputs(10, f1=64, fm=64), cuda_device))
     args[8] = args[8].clone().requires_grad_(True)
+    # the launch itself; egcl_pair_edges pairs it with its backward
     with pytest.raises(ValueError, match="requires grad"):
-        egcl_pair.egcl_pair_edges(*args)
+        egcl_pair._launch(*args)
 
 
 @pytest.mark.cuda
@@ -214,8 +215,45 @@ def test_knn_grad_inputs_refused_on_the_card(cuda_device):
     args[6] = args[6].clone().requires_grad_(True)
     before = egcl_knn.egcl_knn_launches
     with pytest.raises(ValueError, match="requires grad"):
-        egcl_knn.egcl_knn_edges(*args)
+        egcl_knn._launch(*args)
     assert egcl_knn.egcl_knn_launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["pair", "knn"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_edge_function_trains_through_the_kernel(cuda_device, kind, dtype):
+    """Where grad is on, the edge function launches its kernel once and
+    its gradients are autograd of the plain statement (``ops.edge_grad``)."""
+    if kind == "pair":
+        fn, ref, counter = (egcl_pair.egcl_pair_edges,
+                            egcl_pair.egcl_pair_edges_reference,
+                            "egcl_pair_launches")
+        module, data = egcl_pair, {5}
+        args = edge_args(edge_inputs(20, f1=64, fm=64, n_real=(13, 16)),
+                         cuda_device, dtype)
+    else:
+        fn, ref, counter = (egcl_knn.egcl_knn_edges,
+                            egcl_knn.egcl_knn_edges_reference,
+                            "egcl_knn_launches")
+        module, data = egcl_knn, {4, 5}
+        args = knn_args(knn_inputs(20, k=6, hdim=36, f1=64, fm=64),
+                        cuda_device, dtype)
+    leaves = [a.clone().requires_grad_(i not in data)
+              for i, a in enumerate(args)]
+    diff = [a for i, a in enumerate(leaves) if i not in data]
+    before = getattr(module, counter)
+    out = fn(*leaves)
+    assert getattr(module, counter) == before + 1
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    cot = [torch.randn(o.shape, generator=g, device=cuda_device)
+           for o in out]
+    got = torch.autograd.grad(out, diff, cot)
+    want = torch.autograd.grad(ref(*leaves), diff, cot)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        torch.testing.assert_close(a.float(), b.float(), rtol=5e-3,
+                                   atol=5e-5 * float(b.float().abs().max()))
 
 
 # --- the hardware probes (P1-P4) ---
@@ -362,7 +400,7 @@ def test_tiny_widths_take_the_plain_route_on_the_card(cuda_device, knn):
     hdim = 60 if knn else 12                    # 60 > MAX_H on the kNN route
     fm = 64 if knn else 16
     layer = egnn.EGCL(hdim, 32 if not knn else 64, fm,
-                      32 if not knn else 64, 32, hdim)
+                      32 if not knn else 64, 32, hdim, zero_init_x=False)
     layer.requires_grad_(False)
     g = torch.Generator().manual_seed(1)
     h = torch.randn(3, 10, hdim, generator=g)

@@ -52,3 +52,50 @@ def test_bfloat16_goldens_are_current(pair, key):
 
 def test_fixture_is_small():
     assert fixtures.FIXTURE.stat().st_size < 1 << 20
+
+
+# --- the training fixture (chip_smoke.py's train_parity and train_learned)
+
+
+@pytest.fixture(scope="module")
+def train_pair():
+    with np.load(fixtures.TRAIN_FIXTURE) as z:
+        committed = {k: z[k] for k in z.files}
+    return committed, fixtures.build_train()
+
+
+def test_train_fixture_has_the_same_arrays(train_pair):
+    committed, fresh = train_pair
+    assert sorted(committed) == sorted(fresh)
+    for k in fresh:
+        assert committed[k].shape == fresh[k].shape, k
+        assert committed[k].dtype == fresh[k].dtype, k
+
+
+@pytest.mark.parametrize("key", ["train_pos", "draw_t", "draw_pos", "draw_h",
+                                 "leaf_names", "gamma_init_l1/weight",
+                                 "gamma_init_l2/weight",
+                                 "gamma_init_l3/weight",
+                                 "gamma_init_gamma_0", "gamma_init_gamma_1"])
+def test_train_fixture_inputs_are_current(train_pair, key):
+    committed, fresh = train_pair
+    np.testing.assert_array_equal(committed[key], fresh[key])
+
+
+@pytest.mark.parametrize("dt,rtol", [("float32", 1e-4), ("bfloat16", 1e-2)])
+def test_train_fixture_step_is_current(train_pair, dt, rtol):
+    # XLA's CPU kernels may sum in another order on another CPU
+    committed, fresh = train_pair
+    for k in ("loss", "sum_sq", "grad_norm", "update_norm"):
+        np.testing.assert_allclose(committed[f"{k}_{dt}"], fresh[f"{k}_{dt}"],
+                                   rtol=rtol, err_msg=k)
+
+
+def test_train_fixture_gamma_fit_is_current(train_pair):
+    committed, fresh = train_pair
+    np.testing.assert_allclose(committed["gamma_fit_alphas"],
+                               fresh["gamma_fit_alphas"], rtol=0, atol=1e-5)
+
+
+def test_train_fixture_is_small():
+    assert fixtures.TRAIN_FIXTURE.stat().st_size < 1 << 17

@@ -62,7 +62,9 @@ def learned():
 
 
 def port_gamma(params, device="cpu"):
-    gamma = GammaNetwork(device=device)
+    """The snapshot's gamma network, frozen as ``api.schedule_for`` serves
+    it (a trainable one keeps its table's graph)."""
+    gamma = GammaNetwork(device=device).requires_grad_(False)
     gamma.load_state_dict(port_ckpt.gamma_state_dict_from_flax(params))
     return gamma
 

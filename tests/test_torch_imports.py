@@ -31,11 +31,13 @@ def test_every_module_is_listed():
                      "diffusion.sampler", "evals", "evals.cn2", "evals.rdf",
                      "evals.restore_check", "nn.compressor", "nn.denoiser",
                      "nn.egnn", "nn.gamma", "ops.angles", "ops.com",
-                     "ops.edges", "ops.egcl_knn", "ops.egcl_pair", "ops.rdf",
-                     "ops.schedules", "ops._build", "probes._common",
+                     "ops.edge_grad", "ops.edges", "ops.egcl_knn",
+                     "ops.egcl_pair", "ops.rdf", "ops.schedules",
+                     "ops._build", "probes._common",
                      "probes.kernel_stages", "probes.matmul_rate",
                      "probes.overlap", "probes.pipeline",
-                     "train.checkpoint"):
+                     "train.checkpoint", "train.loss", "train.optim",
+                     "train.trainer"):
         assert f"diffusion_model_tpu_torch.{expected}" in names
 
 

@@ -138,7 +138,7 @@ def test_virtual_node_tree_maps_exactly(small):
             for leaf in ("kernel", "bias"):
                 # [in, out] as in flax: the channel reads that layout
                 np.testing.assert_array_equal(
-                    getattr(getattr(layer, name), leaf).numpy(),
+                    getattr(getattr(layer, name), leaf).detach().numpy(),
                     np.asarray(lp[name][leaf]))
 
 

@@ -19,8 +19,21 @@ rebuilds it and compares, so it cannot go stale. To rewrite it:
 
     JAX_PLATFORMS=cpu python tests/torch_port_fixtures.py
 
+``build_train()`` makes the training fixture ``tests/fixtures/torch_port/
+train.npz``, which ``chip_smoke.py`` holds the card's training step to: on
+the first ``TRAIN_GRAPHS`` train graphs of the flagship's split, the draws
+of ``Trainer._loss`` from ``jax.random.key(seed)`` (``jax_loss_draws``),
+and the JAX package's loss, ``sum_sq``, per-leaf gradient norms and
+per-leaf update norms of one ``RAdamScheduleFree`` step from the
+``q_predef_r5`` weights, in float32 and in bfloat16; and, for the learned
+recipe, the gamma network's initial parameters, its parameters after
+``fit_gamma_to_schedule``'s 6000 steps, and that fit's alpha table.
+``JAX_PLATFORMS=cpu python tests/torch_port_fixtures.py`` rewrites both
+files.
+
 The module also replays the JAX sampler's random draws for the port's
-noise source (``jax_sample_draws``, ``Replay``) and makes inputs for the
+noise source (``jax_sample_draws``, ``Replay``) and the JAX trainer's
+(``jax_loss_draws``, ``ReplayDraws``), and makes inputs for the
 EGCL edge functions (``edge_inputs``/``edge_args`` for the dense one,
 ``knn_inputs``/``knn_args`` for the kNN one). It imports JAX only inside
 the functions that need it, so the card's tests can use the rest.
@@ -36,7 +49,10 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parents[1]
 FIXTURE = REPO / "tests" / "fixtures" / "torch_port" / "flagship.npz"
+TRAIN_FIXTURE = REPO / "tests" / "fixtures" / "torch_port" / "train.npz"
 SNAPSHOT = REPO / "artifacts" / "q_predef_r5.npz"
+LEARNED = REPO / "artifacts" / "q_learned_r5_s2025.npz"
+TRAIN_GRAPHS = 16    # train graphs of the training fixture's batch
 T_FRACS = (0.1, 0.5, 0.9)
 KNN_K = 6            # neighbours per node of the kNN goldens
 NUM_GRAPHS = 256     # dataset size the flagship was trained on
@@ -142,6 +158,153 @@ def build() -> dict:
             for i, field in enumerate(("eps_x", "eps_h")):
                 out[f"{prefix}{field}_{dt}"] = np.stack(
                     [np.asarray(e[i], np.float32) for e in eps])
+    return out
+
+
+def flagship_train_batch(cfg, count: int = TRAIN_GRAPHS):
+    """The first ``count`` graphs of the flagship's train split, collated by
+    the JAX package."""
+    from diffusion_model_tpu.data.batch import collate
+    from diffusion_model_tpu.data.split import split_dataset
+    from diffusion_model_tpu.data.synthetic import synthetic_sio2_dataset
+
+    graphs = synthetic_sio2_dataset(cfg.seed, NUM_GRAPHS, cfg.n_max,
+                                    spectrum_size=cfg.spectrum_size,
+                                    shells=2)
+    return collate(split_dataset(graphs, cfg.seed)[0][:count], cfg.n_max)
+
+
+def jax_loss_draws(key, cfg, b: int, n: int) -> dict:
+    """The draws ``diffusion_model_tpu.train.Trainer._loss(params, key, .)``
+    makes, by the port's stream names (``train.loss.TrainNoise.STREAMS``),
+    each a list of numpy arrays in the order the port consumes them."""
+    jax = _jax()
+    k_diff, _, k_drop = jax.random.split(key, 3)
+    k_t, k_pos, k_h = jax.random.split(k_diff, 3)
+    T = cfg.num_diffusion_timestep
+    draws = {"t": [jax.random.randint(k_t, (b,), 1, T + 1)],
+             "pos": [jax.random.normal(k_pos, (b, n, 3))],
+             "h": [jax.random.normal(k_h, (b, n, cfg.atom_type_size))]}
+    if cfg.t_bias_frac > 0.0:
+        k_sel = jax.random.fold_in(k_t, 0x7FFFFFFE)
+        k_band = jax.random.fold_in(k_t, 0x7FFFFFFD)
+        draws["t_band"] = [jax.random.randint(k_band, (b,), cfg.t_bias_lo,
+                                              cfg.t_bias_hi + 1)]
+        draws["t_sel"] = [jax.random.bernoulli(k_sel, cfg.t_bias_frac, (b,))]
+    if cfg.cond_dropout_prob > 0:
+        draws["drop"] = [jax.random.bernoulli(
+            k_drop, 1.0 - cfg.cond_dropout_prob, (b,))]
+    return {k: [np.asarray(a) for a in v] for k, v in draws.items()}
+
+
+class ReplayDraws:
+    """A port training noise source (``randint``, ``normal``,
+    ``bernoulli``) that hands out recorded draws in order, stream by
+    stream."""
+
+    def __init__(self, draws: dict, device="cpu"):
+        self.draws = {k: list(v) for k, v in draws.items()}
+        self.device = device
+
+    def _next(self, stream, shape, dtype):
+        import torch
+
+        if not self.draws.get(stream):
+            raise AssertionError(f"no recorded {stream} draw left")
+        d = self.draws[stream].pop(0)
+        if tuple(d.shape) != tuple(shape):
+            raise AssertionError(f"recorded {stream} draw has shape "
+                                 f"{d.shape}, asked {tuple(shape)}")
+        return torch.from_numpy(np.array(d, dtype)).to(self.device)
+
+    def randint(self, stream, low, high, shape):
+        return self._next(stream, shape, np.int64)
+
+    def normal(self, stream, shape):
+        return self._next(stream, shape, np.float32)
+
+    def bernoulli(self, stream, p, shape):
+        return self._next(stream, shape, bool)
+
+
+def port_batch(batch, device="cpu"):
+    """A JAX ``GraphBatch`` as the port's, through numpy."""
+    import torch
+
+    from diffusion_model_tpu_torch.data.batch import GraphBatch
+
+    return GraphBatch(**{
+        k: torch.from_numpy(np.array(getattr(batch, k), np.float32)).to(
+            device) for k in ("pos", "species", "spectrum", "exo", "mask")})
+
+
+def flat_leaves(tree: dict) -> dict:
+    """A parameter tree's leaves by their ``/``-joined path."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update({f"{k}/{kk}": vv for kk, vv in flat_leaves(v).items()})
+        else:
+            out[k] = v
+    return out
+
+
+def build_train() -> dict:
+    """Every array of the training fixture, made anew (float32 and
+    bfloat16 JAX train steps on ``TRAIN_GRAPHS`` flagship graphs, and the
+    learned recipe's gamma fit)."""
+    jax = _jax()
+    import jax.numpy as jnp
+
+    from diffusion_model_tpu.diffusion.process import (
+        learned_schedule,
+        predefined_schedule,
+    )
+    from diffusion_model_tpu.nn.gamma import (
+        GammaNetwork,
+        fit_gamma_to_schedule,
+    )
+    from diffusion_model_tpu.train import Trainer
+    from diffusion_model_tpu.train.checkpoint import load_config_npz
+    from diffusion_model_tpu.train.trainer import TrainState
+
+    cfg, params = flagship()
+    batch = flagship_train_batch(cfg)
+    key = jax.random.key(cfg.seed)
+    draws = jax_loss_draws(key, cfg, TRAIN_GRAPHS, cfg.n_max)
+    out = {"train_pos": np.asarray(batch.pos),
+           **{f"draw_{k}": v[0] for k, v in draws.items()}}
+    names = sorted(flat_leaves(params))
+    out["leaf_names"] = np.asarray(names)
+    for dt in ("float32", "bfloat16"):
+        trainer = Trainer(cfg.replace(compute_dtype=dt))
+        (loss, (sum_sq, _)), grads = jax.jit(jax.value_and_grad(
+            trainer._loss, has_aux=True))(params, key, batch)
+        state = TrainState(params=params,
+                           opt_state=trainer.optimizer.init(params),
+                           step=jnp.zeros((), jnp.int32))
+        new, _ = trainer.train_step(state, key, batch)
+        g, old, upd = (flat_leaves(t) for t in (grads, params, new.params))
+        out[f"loss_{dt}"] = np.float32(loss)
+        out[f"sum_sq_{dt}"] = np.float32(sum_sq)
+        out[f"grad_norm_{dt}"] = np.asarray(
+            [np.linalg.norm(np.asarray(g[k], np.float32)) for k in names],
+            np.float32)
+        out[f"update_norm_{dt}"] = np.asarray(
+            [np.linalg.norm(np.asarray(upd[k], np.float32)
+                            - np.asarray(old[k], np.float32))
+             for k in names], np.float32)
+    lcfg = load_config_npz(str(LEARNED))
+    gamma = GammaNetwork()
+    gkey = jax.random.key(lcfg.seed)
+    init = gamma.init(gkey, jnp.zeros((1, 1)))
+    fitted, _ = fit_gamma_to_schedule(gamma, predefined_schedule(lcfg).alphas,
+                                      gkey)
+    for tag, tree in (("init", init), ("fit", fitted)):
+        for k, v in flat_leaves(tree["params"]).items():
+            out[f"gamma_{tag}_{k}"] = np.asarray(v, np.float32)
+    out["gamma_fit_alphas"] = np.asarray(learned_schedule(
+        gamma.apply, fitted, lcfg.num_diffusion_timestep).alphas)
     return out
 
 
@@ -354,10 +517,10 @@ def stage_args(inputs: dict, device="cpu") -> tuple:
 
 
 def main() -> int:
-    arrays = build()
     FIXTURE.parent.mkdir(parents=True, exist_ok=True)
-    np.savez_compressed(FIXTURE, **arrays)
-    print(f"wrote {FIXTURE} ({FIXTURE.stat().st_size} bytes)")
+    for path, make in ((FIXTURE, build), (TRAIN_FIXTURE, build_train)):
+        np.savez_compressed(path, **make())
+        print(f"wrote {path} ({path.stat().st_size} bytes)")
     return 0
 
 
