@@ -28,6 +28,12 @@ Phases, each printed as one JSON line:
      beside the JAX record and held to its gates (``QUALITY``);
  4b. the evaluators on the card against the CPU on phase 4's samples: RDF
      curves rtol 1e-5 / atol 1e-6 of their max, scores within 1e-6;
+     evaluate_flagship: ``api.evaluate``'s numbers (sorted Kabsch RMSD, O
+     density accuracy) on the same samples, card against CPU (RMSDs rtol
+     1e-5, accuracy exact), beside the JAX record and held to the gates of
+     ``evals.retrain_check.GATE``; predict_sizes: a seeded ``CNPredictor``
+     on the card against the CPU, then one chunk generated through
+     ``api.generate(size_predictor=...)``, every sample finite;
  4c. ``evals.restore_check`` on ``artifacts/q_learned_r5_s2025.npz``: the
      learned schedule's own gamma table, bf16, dense route, 27 x 5, 1000
      steps; 135 of 135 accepted, K1 10010 times and the plain route never,
@@ -98,7 +104,15 @@ Phases, each printed as one JSON line:
      the written npz generates one chunk through ``api.generate``;
  18. train_learned: the learned recipe's 6000-step gamma fit on the card
      from JAX's initial parameters, within 1e-3 of JAX's alpha table, then
-     one epoch with the gamma boundary term (gamma gradients nonzero).
+     one epoch with the gamma boundary term (gamma gradients nonzero);
+ 19. checkpoint_resume: the flagship's recipe from a fresh init with
+     ``checkpoint_every=1`` through ``api.train``: 4 epochs twice, and 2
+     epochs then ``resume=True`` to 4, the resumed run held to the
+     uninterrupted one bit for bit (or, on a card that is not
+     deterministic, within the gap between the two uninterrupted runs);
+     3 steps kept, K1 5 times a forward; the checkpoint's save and restore
+     timed and its bytes; ``init_params_from`` and ``load_trained``; a
+     checkpoint of the flagship's weights reloaded and sampled.
 
 Any failed check raises, and the script exits non-zero without its result
 line. The last lines are the kernel table (with each kernel's bound: its
@@ -158,6 +172,12 @@ QUALITY = {
 # stands on 4-5 CN2 conditions and spreads over sampling seeds in the port
 # and in the JAX package from the same npz alike (PERF.md section 6).
 LEARNED_R2_FAULT = "F4 (ROADMAP.md section 3), open"
+# The flagship's atom_type_accuracy reads above the JAX record by more than
+# its gate on the card (0.9926 against 0.9704, gate 0.0162 at seed 2024),
+# and above the JAX package's own reading of the same npz (0.978-0.993 over
+# three keys, tests/fixtures/torch_port/jax_evaluate_predef_r5.json):
+# fault F7 of ROADMAP.md section 3, open; logged, not enforced.
+EVALUATE_FAULT = {"atom_type_accuracy": "F7 (ROADMAP.md section 3), open"}
 TRAJECTORY_STEPS = 50
 TRAJECTORY_EVERY = 10
 TRAIN_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port" / "train.npz"
@@ -171,6 +191,10 @@ GRAD_BF16_REL_L2 = 2e-2
 # the training step against the JAX fixture: (loss rtol, norm rtol)
 TRAIN_TOL = {"float32": (1e-3, 5e-3), "bfloat16": (2e-2, 5e-2)}
 GAMMA_FIT_ATOL = 1e-3
+RESUME_EPOCHS = 4      # of the checkpoint_resume phase's runs
+# a resumed run on a card that is not deterministic is held to this many
+# times the gap between two uninterrupted runs, leaf for leaf
+RESUME_SPREAD = 3.0
 
 
 def log(record: dict) -> None:
@@ -1353,6 +1377,295 @@ def phase_train_flagship(device, card: str, k: int = 0,
     return rec
 
 
+def state_leaves(state) -> dict:
+    """A ``TrainState``'s parameters, optimizer-state leaves and step, keyed
+    by field path, as its checkpoint holds them."""
+    import torch
+
+    from diffusion_model_tpu_torch.train import checkpoint
+
+    out = checkpoint._flatten_state(state.params, "params", {})
+    checkpoint._flatten_state(state.opt_state, "opt_state", out)
+    out["step"] = torch.tensor(state.step)
+    return out
+
+
+def leaf_gap(a, b) -> dict:
+    """Per leaf of two states, the largest absolute difference."""
+    la, lb = state_leaves(a), state_leaves(b)
+    if sorted(la) != sorted(lb):
+        raise AssertionError("the two states have other leaves")
+    return {k: float((la[k].double() - lb[k].double()).abs().max())
+            if la[k].numel() else 0.0 for k in la}
+
+
+def phase_checkpoint_resume(device, card: str) -> dict:
+    """The flagship's recipe (bf16, dense K1, batch 64) from a fresh init,
+    ``checkpoint_every=1``, through ``api.train``: run A 4 epochs, run A'
+    the same again (is the card itself deterministic?), run B 2 epochs then
+    ``resume=True`` to 4. B is held to A bit for bit where A equals A' bit
+    for bit, else within ``RESUME_SPREAD`` times the A-A' gap, leaf for
+    leaf. 3 step directories kept, K1 5 times a forward, the plain route
+    never. Then the save and restore of A's state timed and its bytes;
+    ``init_params_from`` A for one epoch starts at A's eval parameters;
+    ``load_trained`` on A gives A's eval parameters and generates one chunk
+    (its finite share read: a model 16 steps from its init); and a
+    checkpoint holding the flagship's weights, reloaded by
+    ``load_trained``, generates one chunk, every sample finite."""
+    import os
+    import shutil
+
+    import torch
+
+    from diffusion_model_tpu_torch import api
+    from diffusion_model_tpu_torch.data.split import split_dataset
+    from diffusion_model_tpu_torch.nn import egnn
+    from diffusion_model_tpu_torch.nn.denoiser import DiffusionDenoiser
+    from diffusion_model_tpu_torch.ops import egcl_knn, egcl_pair
+    from diffusion_model_tpu_torch.train import checkpoint
+    from diffusion_model_tpu_torch.train.checkpoint import (
+        load_config_npz,
+        load_params_npz,
+    )
+    from diffusion_model_tpu_torch.train.trainer import Trainer, params_tree
+
+    cfg = load_config_npz(str(SNAPSHOT)).replace(checkpoint_every=1)
+    graphs = flagship_graphs(cfg)
+    test = split_dataset(graphs, cfg.seed)[2]
+    root = TRAIN_RUN / "resume"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def train(name, epochs, **kw):
+        return api.train(cfg, graphs, str(root / name), num_epochs=epochs,
+                         device=device, **kw)[1]
+
+    forwards = []
+    hook = torch.nn.modules.module.register_module_forward_hook(
+        lambda m, i, o: forwards.append(1)
+        if isinstance(m, DiffusionDenoiser) else None)
+    egcl_pair.egcl_pair_launches = egcl_knn.egcl_knn_launches = 0
+    egnn.plain_edge_calls = 0
+    t0 = time.perf_counter()
+    try:
+        run_a = train("a", RESUME_EPOCHS)
+        run_a2 = train("a2", RESUME_EPOCHS)
+        train("b", RESUME_EPOCHS // 2)
+        run_b = train("b", RESUME_EPOCHS, resume=True)
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    wall = time.perf_counter() - t0
+    launches = {"egcl_pair": egcl_pair.egcl_pair_launches,
+                "egcl_knn": egcl_knn.egcl_knn_launches,
+                "plain_edge_calls": egnn.plain_edge_calls}
+    want = {"egcl_pair": cfg.L * len(forwards), "egcl_knn": 0,
+            "plain_edge_calls": 0}
+    if launches != want or not forwards:
+        raise AssertionError(f"resume runs: launches {launches}, want "
+                             f"{want} over {len(forwards)} forwards")
+    card_gap = leaf_gap(run_a, run_a2)
+    resume_gap = leaf_gap(run_b, run_a)
+    deterministic = max(card_gap.values()) == 0.0
+    if deterministic:
+        off = [k for k, v in resume_gap.items() if v != 0.0]
+    else:
+        off = [k for k, v in resume_gap.items()
+               if v > RESUME_SPREAD * card_gap[k]]
+    kept = sorted(os.listdir(root / "a" / "checkpoints"))
+
+    # save and restore of A's full state, timed on the host clock
+    timing = str(root / "timing")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save_checkpoint(timing, run_a, cfg, step=RESUME_EPOCHS)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    step_dir = os.path.join(timing, str(RESUME_EPOCHS))
+    nbytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                 for f in os.listdir(step_dir))
+    t0 = time.perf_counter()
+    restored, _ = checkpoint.restore_checkpoint(
+        timing, Trainer(cfg, device=device))
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    if max(leaf_gap(restored, run_a).values()) != 0.0:
+        raise AssertionError("the restored state is not the saved one")
+
+    # init_params_from A: the first epoch starts at A's eval parameters
+    from diffusion_model_tpu_torch.train import trainer as trainer_module
+
+    first = {}
+    epoch_fn = trainer_module.Trainer.train_epoch
+
+    def recording(self, state, noise, batches):
+        first.setdefault("params", {k: p.detach().clone()
+                                    for k, p in state.params.items()})
+        first.setdefault("step", state.step)
+        return epoch_fn(self, state, noise, batches)
+
+    trainer_module.Trainer.train_epoch = recording
+    try:
+        train("c", 1, init_params_from=str(root / "a"))
+    finally:
+        trainer_module.Trainer.train_epoch = epoch_fn
+    want_params = run_a.eval_params(cfg)
+    init_equal = first["step"] == 0 and all(
+        torch.equal(first["params"][k], want_params[k]) for k in want_params)
+
+    # load_trained on A, and on a checkpoint of the flagship's weights
+    _, loaded = api.load_trained(str(root / "a"), cfg, device)
+    loaded_params = loaded.eval_params(cfg)
+    load_equal = all(torch.equal(loaded_params[k], want_params[k])
+                     for k in want_params)
+    gen_a = generated_chunk(cfg, params_tree(loaded_params), test, device)
+    flagship_trainer = Trainer(cfg, device=device)
+    flagship_state = flagship_trainer.init_state(
+        cfg.seed, params=load_params_npz(str(SNAPSHOT)), skip_gamma_fit=True)
+    checkpoint.save_checkpoint(str(root / "flagship" / "checkpoints"),
+                               flagship_state, cfg, step=0)
+    _, flagship_loaded = api.load_trained(str(root / "flagship"), cfg, device)
+    gen_flagship = generated_chunk(
+        cfg, params_tree(flagship_loaded.eval_params(cfg)), test, device)
+
+    rec = {"phase": "checkpoint_resume", "card": card,
+           "epochs": RESUME_EPOCHS, "steps": run_a.step,
+           "forwards": len(forwards), "launches": launches,
+           "card_deterministic": deterministic,
+           "a_vs_a2_max_leaf_gap": max(card_gap.values()),
+           "b_vs_a_max_leaf_gap": max(resume_gap.values()),
+           "resume_held_to": "bit for bit" if deterministic else
+           f"{RESUME_SPREAD} x the A-A' gap of each leaf",
+           "leaves_off": off[:5], "kept_steps": kept,
+           "checkpoint_bytes": nbytes, "save_ms": save_ms,
+           "restore_ms": restore_ms, "runs_wall_s": wall,
+           "init_params_from_starts_at_eval_params": init_equal,
+           "load_trained_equals_eval_params": load_equal,
+           "generated_from_a": gen_a,
+           "generated_from_flagship_checkpoint": gen_flagship}
+    log(rec)
+    if off:
+        raise AssertionError(f"the resumed run is off the uninterrupted "
+                             f"one at {off[:5]}")
+    if kept != [str(s) for s in range(RESUME_EPOCHS - 2, RESUME_EPOCHS + 1)]:
+        raise AssertionError(f"kept steps {kept}")
+    if not (init_equal and load_equal):
+        raise AssertionError(f"init_params_from / load_trained: {rec}")
+    if gen_flagship["finite"] != gen_flagship["samples"] or \
+            gen_a["samples"] != GEN_BATCH * GEN_PER_CONDITION:
+        raise AssertionError(f"generation from a checkpoint: {rec}")
+    return rec
+
+
+def phase_evaluate_flagship(out: dict, device, card: str) -> dict:
+    """``api.evaluate``'s numbers on phase 4's samples (q_predef_r5, 27 x
+    5) on the card against the CPU (RMSDs rtol 1e-5, accuracy exact),
+    beside the JAX record, gated where the gate has a measured spread
+    (``evals.retrain_check.GATE``)."""
+    import numpy as np
+    import torch
+
+    from diffusion_model_tpu_torch import api
+    from diffusion_model_tpu_torch.evals import retrain_check
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = api.evaluate_numbers(out, device)
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    on_host = api.evaluate_numbers(out, "cpu")
+    host_ms = (time.perf_counter() - t0) * 1e3
+    keys = ("rmsd_best", "rmsd_median", "rmsd_worst", "atom_type_accuracy",
+            "num_accepted")
+    numbers = {k: on_card[k] for k in keys}
+    card_rmsd = np.asarray([r[1] for r in on_card["sorted_rmsd"]])
+    host_rmsd = np.asarray([r[1] for r in on_host["sorted_rmsd"]])
+    err = float(np.max(np.abs(card_rmsd - host_rmsd) / host_rmsd))
+    gate = retrain_check.within_gate("q_predef_r5", numbers)
+    rec = {"phase": "evaluate_flagship", "card": card, "numbers": numbers,
+           "cpu_numbers": {k: on_host[k] for k in keys},
+           "sorted_rmsd_max_rel_err_card_vs_cpu": err,
+           "jax_record": {k: retrain_check.RECORD["q_predef_r5"][k]
+                          for k in keys if k in
+                          retrain_check.RECORD["q_predef_r5"]},
+           "gate": {k: retrain_check.GATE["q_predef_r5"].get(k)
+                    for k in ("rmsd_median", "atom_type_accuracy")},
+           "within_gate": gate,
+           "open_fault": {k: v for k, v in EVALUATE_FAULT.items()
+                          if not gate.get(k, True)},
+           "card_ms": card_ms, "cpu_ms": host_ms,
+           "tolerance": "card vs CPU: RMSDs rtol 1e-5, accuracy exact"}
+    log(rec)
+    if not err <= 1e-5 or any(
+            not np.isclose(on_card[k], on_host[k], rtol=1e-5, atol=0)
+            for k in ("rmsd_best", "rmsd_median", "rmsd_worst")):
+        raise AssertionError(f"evaluate on the card is off the CPU: {rec}")
+    if on_card["atom_type_accuracy"] != on_host["atom_type_accuracy"] or \
+            on_card["num_accepted"] != on_host["num_accepted"]:
+        raise AssertionError(f"evaluate's accuracy differs: {rec}")
+    check_gates({"snapshot": "q_predef_r5", "within_gate": gate},
+                open_fault=tuple(EVALUATE_FAULT))
+    return rec
+
+
+def phase_predict_sizes(cfg, params: dict, graphs: list, device,
+                        card: str) -> None:
+    """A seeded ``CNPredictor`` (its output bias at the conditions' mean
+    atom count) on the card against the CPU on the test conditions
+    (predictions rtol 1e-5, sizes equal), then one chunk through
+    ``api.generate(size_predictor=...)``: every sample finite, K1 only."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from diffusion_model_tpu_torch import api
+    from diffusion_model_tpu_torch.nn.cn_mlp import CNPredictor
+    from diffusion_model_tpu_torch.ops import egcl_knn, egcl_pair
+
+    torch.manual_seed(cfg.seed)
+    host = CNPredictor(spectrum_size=cfg.spectrum_size)
+    sizes = [len(g["pos"]) for g in graphs]
+    with torch.no_grad():
+        host.dense_out.bias.fill_(float(np.mean(sizes)))
+    on_card = copy.deepcopy(host).to(device)
+    spectra = np.stack([np.asarray(g["spectrum"][0], np.float32)
+                        for g in graphs])
+    with torch.no_grad():
+        want = host(torch.from_numpy(spectra)).numpy()
+        got = on_card(torch.from_numpy(spectra).to(device)).cpu().numpy()
+    card_sizes = [len(g["pos"]) for g in api.predict_sizes(
+        cfg, (on_card, None), graphs)]
+    host_sizes = [len(g["pos"]) for g in api.predict_sizes(
+        cfg, (host, None), graphs)]
+    chunk = graphs[:GEN_BATCH]
+    egcl_pair.egcl_pair_launches = egcl_knn.egcl_knn_launches = 0
+    out = api.generate(cfg, params, chunk, device=device,
+                       size_predictor=(on_card, None))
+    torch.cuda.synchronize()
+    launches = (egcl_pair.egcl_pair_launches, egcl_knn.egcl_knn_launches)
+    rows = np.isfinite(out["generated_pos"]).all(axis=(1, 2))
+    rec = {"phase": "predict_sizes", "card": card,
+           "max_rel_err_card_vs_cpu": float(np.max(np.abs(got - want)
+                                                   / np.abs(want))),
+           "true_sizes": sizes[:GEN_BATCH], "predicted_sizes":
+           card_sizes[:GEN_BATCH], "samples": int(len(rows)),
+           "finite": int(rows.sum()), "accepted": int(out["accepted"].sum()),
+           "k1_launches": launches[0], "k2_launches": launches[1],
+           "tolerance": "predictions rtol 1e-5, sizes equal"}
+    log(rec)
+    if not np.allclose(got, want, rtol=1e-5, atol=0) or \
+            card_sizes != host_sizes:
+        raise AssertionError(f"CNPredictor on the card: {rec}")
+    if card_sizes == sizes:
+        raise AssertionError("the predictor changed no size")
+    expected = [n for n in card_sizes[:GEN_BATCH]
+                for _ in range(GEN_PER_CONDITION)]
+    if list(out["mask"].sum(axis=1).astype(int)) != expected:
+        raise AssertionError("generated sizes are not the predicted ones")
+    if rec["finite"] != rec["samples"] or launches[1] or not launches[0] \
+            or launches[0] % cfg.L:
+        raise AssertionError(f"generation through size_predictor: {rec}")
+
+
 def generated_chunk(cfg, params: dict, graphs: list, device) -> dict:
     """One chunk of ``api.generate`` (``GEN_BATCH`` conditions x
     ``GEN_PER_CONDITION``, 1000 steps): its samples, finite rows as the
@@ -1725,6 +2038,9 @@ def main() -> int:
     pair_launches, served = kernels_only("generate", phase_generate, cfg,
                                          params, graphs, device)
     phase_score_devices(served, device)
+    phase_evaluate_flagship(served, device, card)
+    kernels_only("predict_sizes", phase_predict_sizes, cfg, params, graphs,
+                 device, card)
     kernels_only("generate_learned", phase_generate_learned, device, card)
     kernels_only("trajectory", phase_trajectory, cfg, params, graphs, device)
     kernels_only("headline", phase_headline, cfg, params, cell, device, card)
@@ -1742,6 +2058,8 @@ def main() -> int:
     knn_train = kernels_only("train_flagship_knn", phase_train_flagship,
                              device, card, SERVED_K, 1)
     kernels_only("train_learned", phase_train_learned, device, card)
+    resume = kernels_only("checkpoint_resume", phase_checkpoint_resume,
+                          device, card)
     log({"phase": "flagship_routes", "plain_edge_calls": plain_calls,
          "egcl_pair_launches_served": pair_launches,
          "egcl_knn_launches_served": knn_launches,
@@ -1759,6 +2077,7 @@ def main() -> int:
          "replaces": "diffusion_model_tpu/ops/egcl_pallas.py:171",
          "launches": pair_launches, **pair,
          "train_launches": dense_train["launches"]["egcl_pair"],
+         "resume_launches": resume["launches"]["egcl_pair"],
          "train_grad": grads["egcl_pair_64x16_bfloat16"]},
         {"name": "egcl_knn", "route": "cuda",
          "source": "diffusion_model_tpu_torch/csrc/egcl_knn.cu",

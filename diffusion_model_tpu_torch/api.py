@@ -1,8 +1,14 @@
-"""Library surface of the port: training, and conditional generation from
-a snapshot.
+"""Library surface of the port: training, resume and reload, conditional
+generation from a snapshot or a run, and the run's evaluation.
 
     trainer, state, (train, val, test) = train(cfg, graphs, run_dir)
-    # run_dir/params.npz: the eval parameters, as the JAX package saves them
+    # run_dir/checkpoints/<epoch>/: the full state every checkpoint_every
+    # epochs and at the end; run_dir/params.npz: the eval parameters, as the
+    # JAX package saves them; run_dir/metrics.jsonl, config.json (RunLogger)
+    train(cfg, graphs, run_dir, resume=True)   # on from the newest epoch
+    trainer, state = load_trained(run_dir, cfg)
+    out = generate(cfg, params_tree(state.eval_params(cfg)), test)
+    evaluate(out, run_dir)          # sorted RMSD, O density, figures
 
     cfg = load_config_npz(path)
     params = load_params_npz(path)
@@ -24,7 +30,6 @@ kernel on the card); otherwise over the dense pair grid (``edge_fn``).
 
 from __future__ import annotations
 
-import json
 import os
 import time
 from typing import Callable, Optional, Union
@@ -38,6 +43,7 @@ from diffusion_model_tpu_torch.data.split import (
     device_batch_iterator,
     split_dataset,
 )
+from diffusion_model_tpu_torch.data.xyz import write_xyz_overlay
 from diffusion_model_tpu_torch.diffusion.process import (
     Schedule,
     learned_schedule,
@@ -48,12 +54,21 @@ from diffusion_model_tpu_torch.diffusion.sampler import (
     sample_with_retry,
     tile_batch,
 )
+from diffusion_model_tpu_torch.evals.density import (
+    density_accuracy,
+    o_density,
+)
+from diffusion_model_tpu_torch.evals.rmsd import evaluate_by_rmsd
 from diffusion_model_tpu_torch.nn.denoiser import DiffusionDenoiser
 from diffusion_model_tpu_torch.nn.gamma import GammaNetwork
 from diffusion_model_tpu_torch.ops.egcl_knn import egcl_knn_edges
 from diffusion_model_tpu_torch.ops.egcl_pair import egcl_pair_edges
+from diffusion_model_tpu_torch.ops.schedules import linspace_f32
 from diffusion_model_tpu_torch.train.checkpoint import (
     gamma_state_dict_from_flax,
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
     save_params_npz,
     state_dict_from_flax,
 )
@@ -61,8 +76,10 @@ from diffusion_model_tpu_torch.train.loss import TrainNoise
 from diffusion_model_tpu_torch.train.trainer import (
     EarlyStopping,
     Trainer,
+    TrainState,
     params_tree,
 )
+from diffusion_model_tpu_torch.utils.logging import RunLogger
 
 MAX_NAN_RECOVERIES = 10
 
@@ -86,54 +103,98 @@ def fit_n_max(graphs: list, multiple: int = 8) -> int:
     return int(-(-biggest // multiple) * multiple)
 
 
+def _device(device, what: str) -> torch.device:
+    """``device``, by default the card; raises when there is no card and
+    the caller did not ask for the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{what} runs on the card and finds none; "
+                           "pass device='cpu' to run on the CPU")
+    return device
+
+
 def train(cfg: Config, dataset: list, run_dir: str,
+          logger: Optional[RunLogger] = None,
           num_epochs: Optional[int] = None, device=None,
-          noise: Optional[Callable[[int, str], object]] = None):
-    """Train from a fresh state, as ``diffusion_model_tpu.api.train``: the
-    dataset prepared and split 80/10/10 by ``cfg.seed``, collated once onto
-    the device, then per epoch the train batches in the order of seed
-    ``cfg.seed + epoch`` and the validation batches in order. A non-finite
-    epoch rolls back to the last good state (at most ``MAX_NAN_RECOVERIES``
-    times); ``EarlyStopping(cfg.patience)`` ends the run. Each epoch's
-    losses go to ``run_dir/metrics.jsonl``, the eval parameters to
-    ``run_dir/params.npz`` (float16, config embedded) at the end.
+          noise: Optional[Callable[[int, str], object]] = None,
+          resume: bool = False, init_params_from: Optional[str] = None):
+    """Train, as ``diffusion_model_tpu.api.train``: the dataset prepared
+    and split 80/10/10 by ``cfg.seed``, collated once onto the device, then
+    per epoch the train batches in the order of seed ``cfg.seed + epoch``
+    and the validation batches in order. A non-finite epoch rolls back to
+    the last good state (at most ``MAX_NAN_RECOVERIES`` times);
+    ``EarlyStopping(cfg.patience)`` ends the run. Each epoch's losses and
+    seconds go through ``logger`` (default ``RunLogger(run_dir, cfg)``) to
+    ``run_dir/metrics.jsonl``; the full state goes to
+    ``run_dir/checkpoints/<epochs done>/`` after every epoch with
+    ``(epoch + 1) % cfg.checkpoint_every == 0`` and at the end; the eval
+    parameters to ``run_dir/params.npz`` (float16, config embedded) at the
+    end. The JAX package's per-phase ``profile.json`` is not written yet
+    (``utils/profiling.py``, ROADMAP.md queue 1 item 8).
+
+    ``resume=True`` restores the newest checkpoint of ``run_dir`` and goes
+    on from its epoch. An epoch's batch order and its noise streams depend
+    on the epoch alone, so a resumed run equals the uninterrupted run bit
+    for bit (the JAX package restarts its key chain on resume). What is not
+    checkpointed, in JAX neither: ``EarlyStopping``'s count, which restarts,
+    and the rollback's last good state, which is the restored one.
+
+    ``init_params_from``: a run directory whose newest checkpoint's eval
+    parameters start this run, with a fresh optimizer state at epoch 0; a
+    checkpoint already in ``run_dir`` wins over it when ``resume=True``.
 
     Runs on the card unless ``device`` names the CPU; the card's kernels
     fail loudly, never falling back. ``noise(epoch, "train" | "eval")``
     gives an epoch's noise source (default ``TrainNoise`` streams seeded
-    from ``cfg.seed``, the epoch and the phase).
+    from ``cfg.seed``, the epoch and the phase). ``cfg.debug_nans`` raises
+    on a non-finite step instead of rolling back (``Trainer``).
 
     Returns ``(trainer, state, (train_set, val_set, test_set))``.
     """
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("api.train runs on the card and finds none; "
-                           "pass device='cpu' to train on the CPU")
+    device = _device(device, "api.train")
     if noise is None:
         def noise(epoch, phase):
             return TrainNoise((cfg.seed, epoch, int(phase == "eval")),
                               device)
+    logger = logger or RunLogger(run_dir, cfg)
     dataset = prepare_dataset(dataset, cfg)
     train_set, val_set, test_set = split_dataset(dataset, cfg.seed)
     trainer = Trainer(cfg, device=device)
-    state = trainer.init_state(cfg.seed)
-    os.makedirs(run_dir, exist_ok=True)
-    metrics_path = os.path.join(run_dir, "metrics.jsonl")
+    ckpt_dir = os.path.join(run_dir, "checkpoints")
+    newest = latest_step(ckpt_dir) if resume else None
+    start_epoch, state = newest or 0, None
+    if newest is not None:
+        state, _ = restore_checkpoint(ckpt_dir, trainer, newest)
+    elif init_params_from:
+        src, src_cfg = restore_checkpoint(
+            os.path.join(init_params_from, "checkpoints"), trainer)
+        params = src.eval_params(src_cfg)
+        state = trainer.init_state(cfg.seed, skip_gamma_fit=True)
+        with torch.no_grad():
+            for k, p in state.params.items():
+                p.copy_(params[k])
+        state = TrainState(state.params, trainer.optimizer.init(state.params))
+        logger.log({"init_params_from": init_params_from,
+                    "source_step": src.step})
+    if state is None:
+        state = trainer.init_state(cfg.seed)
     stopper = EarlyStopping(patience=cfg.patience)
     epochs = cfg.num_epochs if num_epochs is None else num_epochs
     nan_recoveries = 0
     good = state.clone()
     train_data = collate(train_set, cfg.n_max, device)
     val_data = collate(val_set, cfg.n_max, device) if val_set else None
-    for epoch in range(epochs):
+    done = saved = start_epoch
+    for epoch in range(start_epoch, epochs):
         t0 = time.perf_counter()
         batches = device_batch_iterator(train_data, cfg.batch_size,
                                         seed=cfg.seed + epoch)
         state, train_loss = trainer.train_epoch(state, noise(epoch, "train"),
                                                 batches)
+        done = epoch + 1
         if not np.isfinite(train_loss):
             nan_recoveries += 1
-            _log(metrics_path, {"nan_recovery": nan_recoveries}, epoch)
+            logger.log({"nan_recovery": nan_recoveries}, step=epoch)
             if nan_recoveries > MAX_NAN_RECOVERIES:
                 raise RuntimeError(
                     f"training diverged: {MAX_NAN_RECOVERIES} non-finite "
@@ -145,18 +206,31 @@ def train(cfg: Config, dataset: list, run_dir: str,
                        if val_data is not None else iter(()))
         eval_loss = trainer.eval_epoch(state, noise(epoch, "eval"),
                                        val_batches)
-        _log(metrics_path, {"train_loss": train_loss, "eval_loss": eval_loss,
-                            "epoch_s": time.perf_counter() - t0}, epoch)
+        logger.log({"train_loss": train_loss, "eval_loss": eval_loss,
+                    "epoch_s": time.perf_counter() - t0}, step=epoch)
+        if cfg.checkpoint_every and done % cfg.checkpoint_every == 0:
+            save_checkpoint(ckpt_dir, state, cfg, step=done)
+            saved = done
         if stopper.validate(eval_loss):
             break
+    if saved != done or latest_step(ckpt_dir) is None:
+        save_checkpoint(ckpt_dir, state, cfg, step=done)
+    logger.register_artifact("checkpoints", ckpt_dir)
     save_params_npz(params_tree(state.eval_params(cfg)),
                     os.path.join(run_dir, "params.npz"), cfg=cfg)
     return trainer, state, (train_set, val_set, test_set)
 
 
-def _log(path: str, record: dict, epoch: int) -> None:
-    with open(path, "a") as f:
-        f.write(json.dumps({**record, "step": epoch}) + "\n")
+def load_trained(run_dir: str, cfg: Config, device=None):
+    """``(trainer, state)`` of the newest checkpoint of ``run_dir``, as
+    ``diffusion_model_tpu.api.load_trained``: sample at
+    ``state.eval_params(cfg)`` (for instance ``generate(cfg,
+    params_tree(state.eval_params(cfg)), ...)``). On the card unless
+    ``device`` names the CPU; a checkpoint that does not load raises."""
+    trainer = Trainer(cfg, device=_device(device, "api.load_trained"))
+    state, _ = restore_checkpoint(os.path.join(run_dir, "checkpoints"),
+                                  trainer)
+    return trainer, state
 
 
 def denoiser_from_params(cfg: Config, params: dict, device,
@@ -207,6 +281,9 @@ def generate(cfg: Config, params_or_model: Union[dict, DiffusionDenoiser],
         error is raised, and the CPU is used only when asked for.
       noise: optional replacement source of standard-normal draws (see
         ``diffusion.sampler``).
+      size_predictor: ``(CNPredictor, flax params or None)``: each
+        condition is first re-sized to its predicted atom count
+        (``predict_sizes``).
       return_trajectory: also return ``trajectory_pos`` ``[F, S, N, 3]``
         and ``trajectory_h`` ``[F, S, N, A]`` over the S samples, the state
         entering every ``cfg.snapshot_every``-th reverse step
@@ -224,7 +301,7 @@ def generate(cfg: Config, params_or_model: Union[dict, DiffusionDenoiser],
       ``finite``/``accepted`` (and the trajectory when asked for).
     """
     if size_predictor is not None:
-        raise NotImplementedError("size_predictor is not ported yet")
+        test_graphs = predict_sizes(cfg, size_predictor, test_graphs)
     g = gen_num_per_spectrum or cfg.gen_num_per_spectrum
     if isinstance(params_or_model, DiffusionDenoiser):
         model = params_or_model
@@ -290,3 +367,186 @@ def generate(cfg: Config, params_or_model: Union[dict, DiffusionDenoiser],
         "finite": cat("finite"),
         "accepted": cat("accepted"),
     }
+
+
+def predict_sizes(cfg: Config, size_predictor, test_graphs: list) -> list:
+    """Re-size each condition to its predicted atom count, as
+    ``diffusion_model_tpu.api.predict_sizes``: ``round(model(spectrum of
+    node 0))`` clamped to ``[2, n_max]`` (a non-finite prediction falls back
+    to the true size); the per-node arrays are cut, or zero-padded with the
+    grown slots' species set to O.
+
+    ``size_predictor``: ``(model, params)``, a ``CNPredictor`` and a flax
+    tree it loads (or None: the model's own weights); the model runs where
+    its parameters are.
+    """
+    model, params = size_predictor
+    if params is not None:
+        model.load_flax(params)
+    device = next(model.parameters()).device
+    spectra = torch.as_tensor(np.stack(
+        [np.asarray(g["spectrum"][0], np.float32) for g in test_graphs]),
+        device=device)
+    with torch.no_grad():
+        pred = model(spectra)[:, 0].cpu().numpy()
+    true_sizes = np.asarray(
+        [np.asarray(g["pos"]).shape[0] for g in test_graphs], np.float64)
+    pred = np.where(np.isfinite(pred), pred, true_sizes)
+    sizes = np.clip(np.round(pred), 2, cfg.n_max).astype(int)
+    out = []
+    for g, n in zip(test_graphs, sizes):
+        g = dict(g)
+        cur = np.asarray(g["pos"]).shape[0]
+        for field in ("pos", "species", "spectrum", "exo"):
+            a = np.asarray(g[field], np.float32)
+            if n <= cur:
+                g[field] = a[:n]
+            else:
+                padded = np.zeros((n,) + a.shape[1:], np.float32)
+                padded[:cur] = a
+                g[field] = padded
+        if n > cur:
+            g["species"][cur:, 0] = 1.0
+        out.append(g)
+    return out
+
+
+def evaluate_numbers(results: dict, device=None) -> dict:
+    """``evaluate``'s numbers without figures: over the accepted samples,
+    the Kabsch RMSD of each to its condition, sorted (``sorted_rmsd``,
+    ``(index among the accepted, rmsd)``; on ``device``, default the card),
+    ``rmsd_best`` / ``rmsd_median`` / ``rmsd_worst``, the O densities
+    (``o_density_original`` / ``_generated``) and ``atom_type_accuracy``,
+    and ``num_accepted``. With no accepted sample, only ``num_accepted`` 0,
+    an empty ``sorted_rmsd`` and a NaN accuracy."""
+    keep = np.nonzero(np.asarray(results["accepted"]))[0]
+    if len(keep) == 0:
+        return {"sorted_rmsd": [], "atom_type_accuracy": float("nan"),
+                "num_accepted": 0}
+    pick = {k: np.asarray(results[k])[keep]
+            for k in ("original_pos", "original_species", "mask",
+                      "generated_pos", "generated_species")}
+    sorted_rows = evaluate_by_rmsd(
+        pick["original_pos"], pick["generated_pos"], pick["mask"],
+        ids=list(range(len(keep))),
+        device=_device(device, "api.evaluate"))
+    rmsds = [r[1] for r in sorted_rows]
+    d_orig = o_density(pick["original_species"], pick["mask"])
+    d_gen = o_density(pick["generated_species"], pick["mask"])
+    return {"sorted_rmsd": sorted_rows,
+            "rmsd_best": float(rmsds[0]),
+            "rmsd_median": float(rmsds[len(rmsds) // 2]),
+            "rmsd_worst": float(rmsds[-1]),
+            "o_density_original": d_orig, "o_density_generated": d_gen,
+            "atom_type_accuracy": density_accuracy(d_orig, d_gen),
+            "num_accepted": int(len(keep))}
+
+
+def evaluate(results: dict, run_dir: str, logger: Optional[RunLogger] = None,
+             create_xyz: bool = False, device=None) -> dict:
+    """Sorted-RMSD evaluation, O-density accuracy and figures, as
+    ``diffusion_model_tpu.api.evaluate``: the numbers of
+    ``evaluate_numbers`` logged (``rmsd_best``, ``rmsd_median``,
+    ``rmsd_worst``, ``atom_type_accuracy``, ``num_accepted``), the figures
+    ``rmsd`` and ``atom_type_eval`` (matplotlib, imported here), and with
+    ``create_xyz`` the overlays of the best three, the median and the worst
+    sample as ``run_dir/<name>.xyz``. Returns ``sorted_rmsd``,
+    ``atom_type_accuracy`` and ``num_accepted``."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    logger = logger or RunLogger(run_dir)
+    num = evaluate_numbers(results, device)
+    if num["num_accepted"] == 0:
+        logger.log({"num_accepted": 0})
+        print("warning: no finite accepted samples to evaluate")
+        return num
+    sorted_rows = num["sorted_rmsd"]
+    acc = num["atom_type_accuracy"]
+
+    fig, ax = plt.subplots()
+    ax.plot([r[1] for r in sorted_rows], marker="o", linestyle="None")
+    ax.set_xlabel("sorted_index")
+    ax.set_ylabel("rmsd")
+    ax.set_yscale("log")
+    ax.set_title("rmsd")
+    logger.log_figure("rmsd", fig)
+    plt.close(fig)
+
+    fig, ax = plt.subplots(figsize=(6, 6))
+    ax.plot([0, 1], [0, 1], "-", color="red", alpha=0.5)
+    ax.plot(num["o_density_original"], num["o_density_generated"], "o",
+            alpha=0.5)
+    ax.set_xlabel("density of O for original")
+    ax.set_ylabel("density of O for generated")
+    ax.set_title(f"atom_type_eval (accuracy {acc:.5f})")
+    ax.set_xlim(0, 1)
+    ax.set_ylim(0, 1)
+    logger.log_figure("atom_type_eval", fig)
+    plt.close(fig)
+
+    logger.log({k: num[k] for k in ("rmsd_best", "rmsd_median", "rmsd_worst",
+                                    "atom_type_accuracy", "num_accepted")})
+
+    if create_xyz:
+        keep = np.nonzero(np.asarray(results["accepted"]))[0]
+        picks = {"first_min_rmsd": 0, "second_min_rmsd": 1,
+                 "third_min_rmsd": 2, "mid_rmsd": len(sorted_rows) // 2,
+                 "max_rmsd": len(sorted_rows) - 1}
+        for name, rank in picks.items():
+            if rank >= len(sorted_rows):
+                continue
+            idx, rmsd = sorted_rows[rank]
+            row = keep[idx]
+            n_real = int(np.asarray(results["mask"])[row].sum())
+            write_xyz_overlay(
+                os.path.join(run_dir, f"{name}.xyz"),
+                np.asarray(results["original_pos"])[row][:n_real],
+                np.asarray(results["original_species"])[row][:n_real],
+                np.asarray(results["generated_pos"])[row][:n_real],
+                np.asarray(results["generated_species"])[row][:n_real],
+                comment=f"{name} {results['ids'][row]} rmsd: {rmsd}")
+        logger.register_artifact("rmsd_xyz_path", run_dir)
+
+    return {k: num[k] for k in ("sorted_rmsd", "atom_type_accuracy",
+                                "num_accepted")}
+
+
+def record_schedule(cfg: Config, trainer: Trainer, state, run_dir: str,
+                    logger: Optional[RunLogger] = None) -> dict:
+    """Figures of the schedule at ``state.eval_params(cfg)`` against t =
+    0..T, as ``diffusion_model_tpu.api.record_schedule``: ``alpha``,
+    ``sigma = sqrt(clip(1 - alpha^2, 0, 1))``, ``SNR = alpha^2 /
+    max(sigma^2, 1e-12)``, and for a learned schedule ``gamma`` on
+    ``linspace(0, 1, T + 1)``. Returns name -> path."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    logger = logger or RunLogger(run_dir)
+    _, gamma = trainer._load_eval(state.eval_params(cfg))
+    with torch.no_grad():
+        alphas = trainer.schedule_for(gamma).alphas.cpu().numpy()
+        sigmas = np.sqrt(np.clip(1 - alphas ** 2, 0, 1))
+        curves = {"alpha": alphas, "sigma": sigmas,
+                  "SNR": (alphas ** 2) / np.maximum(sigmas ** 2, 1e-12)}
+        if cfg.noise_schedule == "learned":
+            t_grid = linspace_f32(0.0, 1.0, len(alphas),
+                                  device=trainer.device)[:, None]
+            curves["gamma"] = gamma(t_grid)[:, 0].cpu().numpy()
+    t = np.arange(alphas.shape[0])
+    paths = {}
+    for name, y in curves.items():
+        fig, ax = plt.subplots()
+        ax.plot(t, y)
+        ax.set_xlabel("t")
+        ax.set_ylabel(name)
+        if name == "SNR":
+            ax.set_yscale("log")
+        ax.set_title(name)
+        paths[name] = logger.log_figure(name, fig)
+        plt.close(fig)
+    return paths

@@ -1,17 +1,24 @@
 """Configuration of the PyTorch port, read from a snapshot's embedded JSON.
 
 The fields and their defaults carry the names of ``diffusion_model_tpu.config``
-so one JSON describes both packages. The fields here are those conditional
-generation and training read (dense topology, or kNN lists with the virtual
-node and the residual node update; the predefined or the learned noise
-schedule; the optimizers, the loss's levers and the initialisers);
-``from_dict`` ignores the rest (mesh settings, orbax checkpoints, the
-distillation knobs) and raises ``NotImplementedError`` for settings whose
-code path the port does not have yet. ``train.Trainer`` refuses the
-training settings it has no path for (``kabsch_loss``, ``remat_egcl``, a
-mesh). No yaml: PyTorch does not depend on PyYAML, so a module-level
-``import yaml`` would stop the port from importing on a machine that has
-only PyTorch and numpy.
+so one JSON describes both packages. Every field of the JAX ``Config`` is
+a field here, so a config round-trips. What the port does with each:
+
+- it honours the fields conditional generation and training read (dense
+  topology, or kNN lists with the virtual node and the residual node
+  update; the predefined or the learned noise schedule; the optimizers,
+  the loss's levers, the initialisers, ``checkpoint_every`` and
+  ``debug_nans``);
+- ``Config`` raises ``NotImplementedError``, naming the field, for a value
+  of ``_SUPPORTED`` whose code path the port does not have yet;
+- the fields of ``JAX_ONLY`` no code of the port reads: the table says for
+  each why any value is refused or cannot change a result;
+- ``train.Trainer`` refuses the training settings it has no path for
+  (``kabsch_loss``, ``remat_egcl``, a mesh).
+
+``from_dict`` ignores keys that are no field (a run's extras). No yaml:
+PyTorch does not depend on PyYAML, so a module-level ``import yaml`` would
+stop the port from importing on a machine that has only PyTorch and numpy.
 """
 
 from __future__ import annotations
@@ -29,13 +36,41 @@ _SUPPORTED = (
     ("ring_sample", False),
     ("x_parameterization", "eps"),
     ("spectrum_to_latent", False),
+    ("x_size", 3),
+    ("d_size", 1),
 )
+
+# The JAX Config's fields that no code of the port reads: "refused" ones
+# are in _SUPPORTED (any value but the JAX default raises); an "inert" one
+# is kept as given and cannot change a result, for the reason stated.
+JAX_ONLY = {
+    "x_size": ("refused", "positions are 3-D throughout the port"),
+    "d_size": ("refused", "the edge MLPs take one squared-distance feature"),
+    "kabsch_loss_steps": ("inert", "read only by the Kabsch loss, which "
+                          "train.Trainer refuses (kabsch_loss)"),
+    "kabsch_loss_weight": ("inert", "read only by the Kabsch loss, which "
+                           "train.Trainer refuses (kabsch_loss)"),
+    "latent_dim": ("inert", "read only with spectrum_to_latent, which "
+                   "_SUPPORTED refuses"),
+    "edge_rbf_rmax": ("inert", "read only with edge_rbf > 0, which "
+                      "_SUPPORTED refuses"),
+    "mesh_axis_names": ("inert", "read only with a mesh_shape, which "
+                        "train.Trainer refuses; generation runs on one "
+                        "device"),
+    "use_pallas": ("inert", "in the JAX package it picks the implementation "
+                   "of the edge function (Pallas or XLA), not the function; "
+                   "the port picks its own by widths (nn.egnn.edge_route: "
+                   "K1/K2 on the card wherever they fit, each held to the "
+                   "plain statement it computes), for either value"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
 class Config:
     # EGNN architecture
     L: int = 5
+    x_size: int = 3
+    d_size: int = 1
     m_size: int = 256
     m_hidden_size: int = 1024
     h_hidden_size: int = 1024
@@ -76,6 +111,8 @@ class Config:
     ema_decay: float = 0.0
     num_epochs: int = 3000
     patience: int = 5000
+    checkpoint_every: int = 0   # epochs between checkpoints; 0: at the end
+    debug_nans: bool = False    # anomaly mode, raise on a non-finite step
     cond_dropout_prob: float = 0.0
     t_bias_frac: float = 0.0
     t_bias_lo: int = 100
@@ -85,8 +122,11 @@ class Config:
     h_init_scale: float = 1.0
     # training paths the port does not have (train.Trainer refuses them)
     kabsch_loss: bool = False
+    kabsch_loss_steps: int = 0
+    kabsch_loss_weight: float = 1.0
     remat_egcl: bool = False
     mesh_shape: Sequence[int] = ()
+    mesh_axis_names: Sequence[str] = ("data",)
 
     # sampling
     guidance_scale: float = 0.0
@@ -102,6 +142,7 @@ class Config:
     n_max: int = 16
     neighbor_k: int = 0
     compute_dtype: str = "float32"
+    use_pallas: bool = False
 
     # large-cell variants: the virtual-node channel and h + mlp_h(...)
     virtual_node: bool = False
@@ -109,10 +150,12 @@ class Config:
 
     # variants the port rejects (see _SUPPORTED)
     edge_rbf: int = 0
+    edge_rbf_rmax: float = 8.0
     global_radius_feature: bool = False
     compat_scalar_norm: bool = False
     ring_sample: bool = False
     spectrum_to_latent: bool = False
+    latent_dim: int = 32
 
     def __post_init__(self):
         for name, supported in _SUPPORTED:
@@ -168,9 +211,9 @@ _FIELD_NAMES = {f.name for f in dataclasses.fields(Config)}
 
 
 def from_dict(d: dict) -> Config:
-    """Build a Config from a dict, ignoring keys the port does not read."""
+    """Build a Config from a dict, ignoring keys that are no field."""
     known = {k: v for k, v in d.items() if k in _FIELD_NAMES}
-    for key in ("compressor_hidden_dim", "mesh_shape"):
+    for key in ("compressor_hidden_dim", "mesh_shape", "mesh_axis_names"):
         if isinstance(known.get(key), list):
             known[key] = tuple(known[key])
     return Config(**known)

@@ -16,6 +16,11 @@ VDM boundary terms (``_gamma_boundary``).
 
 Random draws come from a noise source (``train.loss.TrainNoise``); the loss
 of an epoch is summed on the device and read once at its end.
+
+``cfg.debug_nans`` (the JAX package's ``jax_debug_nans``) runs every train
+step's forward and backward under ``torch.autograd.detect_anomaly()`` and
+raises ``FloatingPointError`` on a non-finite loss, or on a non-finite
+gradient naming its leaf, before the optimizer steps.
 """
 
 from __future__ import annotations
@@ -60,8 +65,8 @@ _NOT_PORTED = (
      "differentiable sampler), ROADMAP.md queue 1 item 5"),
     ("remat_egcl", "rematerialised EGCL layers (torch.utils.checkpoint), "
      "ROADMAP.md queue 1 item 5"),
-    ("mesh_shape", "data-parallel training on a mesh, ROADMAP.md queue 1 "
-     "item 6"),
+    ("mesh_shape", "data-parallel training on a mesh (DDP, with the ring), "
+     "ROADMAP.md queue 1 item 9"),
 )
 
 
@@ -287,13 +292,27 @@ class Trainer:
     def loss_and_grads(self, state: TrainState, noise, batch: GraphBatch):
         """(loss, sum_sq, num_nodes, grads name -> tensor) at the trained
         modules' parameters."""
+        if self.cfg.debug_nans:
+            with torch.autograd.detect_anomaly():
+                return self._loss_and_grads(state, noise, batch, check=True)
+        return self._loss_and_grads(state, noise, batch, check=False)
+
+    def _loss_and_grads(self, state, noise, batch, check: bool):
         loss, sum_sq, num_nodes = self._loss(self.model, self.gamma, noise,
                                              batch)
+        if check and not bool(torch.isfinite(loss)):
+            raise FloatingPointError(
+                f"debug_nans: the loss is {float(loss.detach())}")
         params = state.params
         parts = torch.autograd.grad(loss, list(params.values()),
                                     allow_unused=True)
         grads = {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(params.items(), parts)}
+        if check:
+            for k, g in grads.items():
+                if not bool(torch.isfinite(g).all()):
+                    raise FloatingPointError(
+                        f"debug_nans: the gradient of {k} is not finite")
         return loss.detach(), sum_sq.detach(), num_nodes, grads
 
     def train_step(self, state: TrainState, noise, batch: GraphBatch):

@@ -82,11 +82,23 @@ def test_positions_within_sampler_tolerance(both):
                                rtol=1e-3, atol=1e-2)
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(monkeypatch):
     jcfg, params = flagship()
     cfg = from_dict(jcfg.to_dict())
-    with pytest.raises(NotImplementedError, match="size_predictor"):
-        api.generate(cfg, params, [], device="cpu", size_predictor=object())
+    # ring sampling (api.generate_ring) is the option left unported
+    with pytest.raises(NotImplementedError, match="ring_sample"):
+        from_dict({**jcfg.to_dict(), "ring_sample": True})
+    # size_predictor is ported: generate re-sizes the conditions first
+    seen = []
+
+    def record(cfg, size_predictor, graphs):
+        seen.append(size_predictor)
+        raise LookupError("recorded")
+
+    monkeypatch.setattr(api, "predict_sizes", record)
+    with pytest.raises(LookupError, match="recorded"):
+        api.generate(cfg, params, [], device="cpu", size_predictor="cn")
+    assert seen == ["cn"]
 
 
 def test_generate_samples_on_the_card_by_default(monkeypatch):

@@ -170,3 +170,125 @@ def test_snapshot_without_config_gives_none(tmp_path):
     path = tmp_path / "bare.npz"
     np.savez(path, w=np.zeros(2))
     assert port_ckpt.load_config_npz(str(path)) is None
+
+
+# -- F6: every field of the JAX Config -----------------------------------
+
+HONOURED_SINCE_F6 = ("checkpoint_every", "debug_nans")
+
+
+def test_every_jax_field_is_a_port_field_or_in_the_table():
+    from diffusion_model_tpu.config import Config as JaxConfig
+
+    jax_fields = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
+    port_fields = {f.name: f.default
+                   for f in dataclasses.fields(port_config.Config)}
+    assert set(jax_fields) == set(port_fields)
+    for name, default in jax_fields.items():
+        assert port_fields[name] == default, name
+    # the fields no code of the port reads are each in the table, with
+    # what the port does with them and why
+    assert set(port_config.JAX_ONLY) == {
+        "x_size", "d_size", "kabsch_loss_steps", "kabsch_loss_weight",
+        "latent_dim", "use_pallas", "edge_rbf_rmax", "mesh_axis_names"}
+    for name, (how, why) in port_config.JAX_ONLY.items():
+        assert how in ("refused", "inert") and why, name
+    assert not set(HONOURED_SINCE_F6) & set(port_config.JAX_ONLY)
+
+
+@pytest.mark.parametrize("field,value", [
+    (name, 2) for name, (how, _) in sorted(port_config.JAX_ONLY.items())
+    if how == "refused"])
+def test_refused_jax_fields_raise_naming_the_field(field, value):
+    jax_from_dict({field: value})   # a valid config for the JAX package
+    with pytest.raises(NotImplementedError, match=field):
+        port_config.from_dict({field: value})
+
+
+@pytest.mark.parametrize("field,value", [
+    ("kabsch_loss_steps", 50), ("kabsch_loss_weight", 0.5),
+    ("latent_dim", 16), ("use_pallas", True), ("edge_rbf_rmax", 6.0),
+    ("mesh_axis_names", ["batch"]), ("checkpoint_every", 7),
+    ("debug_nans", True)])
+def test_other_jax_fields_carry_over(field, value):
+    got, want = port_config.from_dict({field: value}), jax_from_dict(
+        {field: value})
+    assert getattr(got, field) == getattr(want, field)
+    assert port_config.from_dict(got.to_dict()) == got
+
+
+def test_flagship_recipe_keeps_checkpoint_every():
+    got = port_ckpt.load_config_npz(str(SNAPSHOT))
+    assert got.checkpoint_every == 300 and got.num_epochs == 3000
+    assert got.mesh_axis_names == ("data",) and not got.use_pallas
+    assert port_ckpt.load_config_npz(str(LEARNED)).checkpoint_every == 0
+
+
+# -- _rescale_gamma_endpoints against the JAX package's --------------------
+
+def _as_jax_tree(tree):
+    """The port's state tree with each name-keyed dict as the flax tree
+    the JAX package's optimizer state mirrors, tensors as numpy."""
+    from diffusion_model_tpu_torch.train.trainer import params_tree
+
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().numpy().copy()
+    if isinstance(tree, dict):
+        return params_tree({k: v.detach() for k, v in tree.items()})
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_as_jax_tree(v) for v in tree))
+    if isinstance(tree, tuple):
+        return tuple(_as_jax_tree(v) for v in tree)
+    return tree
+
+
+@pytest.mark.parametrize("recipe", [
+    dict(optimizer="RAdamScheduleFree"),
+    dict(optimizer="Adam", ema_decay=0.9),
+    dict(optimizer="AdamW")])
+def test_rescale_gamma_endpoints_matches_jax(recipe):
+    import jax
+
+    from diffusion_model_tpu.data.synthetic import synthetic_sio2_dataset
+    from diffusion_model_tpu.train.trainer import TrainState as JaxState
+    from diffusion_model_tpu_torch.data.batch import collate
+    from diffusion_model_tpu_torch.train.loss import TrainNoise
+    from diffusion_model_tpu_torch.train.trainer import Trainer
+
+    cfg = port_config.Config(
+        n_max=8, L=2, m_hidden_size=32, h_hidden_size=32, x_hidden_size=32,
+        m_size=16, spectrum_size=32, compressed_spectrum_size=8,
+        compressor_hidden_dim=(16,), num_diffusion_timestep=50,
+        batch_size=4, lr=1e-3, noise_schedule="learned", **recipe)
+    trainer = Trainer(cfg, device="cpu")
+    state = trainer.init_state(cfg.seed)
+    batch = collate(synthetic_sio2_dataset(0, 4, 8, spectrum_size=32), 8,
+                    "cpu")
+    for step in range(2):   # nonzero moments, z apart from y, an EMA
+        state, _ = trainer.train_step(state, TrainNoise(step, "cpu"), batch)
+    assert all(bool(torch.isfinite(p).all()) for p in state.params.values())
+    saved = {"gamma_endpoint_scale": 1.0}   # written before the rescaling
+    jax_state = JaxState(params=_as_jax_tree(state.params),
+                         opt_state=_as_jax_tree(state.opt_state), step=2)
+    want = jax_ckpt._rescale_gamma_endpoints(jax_state, saved)
+    got = port_ckpt._rescale_gamma_endpoints(state.clone(), saved)
+    got_tree = (_as_jax_tree(got.params), _as_jax_tree(got.opt_state))
+    want_tree = (want.params, want.opt_state)
+    got_leaves = jax.tree_util.tree_flatten_with_path(got_tree)[0]
+    want_leaves = jax.tree_util.tree_flatten_with_path(want_tree)[0]
+    assert [p for p, _ in got_leaves] == [p for p, _ in want_leaves]
+    moved = 0
+    before = dict(jax.tree_util.tree_flatten_with_path(
+        (jax_state.params, jax_state.opt_state))[0])
+    for (path, g), (_, w) in zip(got_leaves, want_leaves):
+        np.testing.assert_allclose(g, w, rtol=1e-6, err_msg=str(path),
+                                   equal_nan=False)
+        moved += not np.array_equal(np.asarray(w), before[path])
+    # the endpoints and their copies moved: y, and z / EMA, mu, nu
+    assert moved >= 2 * (2 if "ema_decay" in recipe or
+                         recipe["optimizer"] == "RAdamScheduleFree" else 1)
+    # a checkpoint at the current scale is left as it is
+    same = port_ckpt._rescale_gamma_endpoints(
+        state.clone(), {"gamma_endpoint_scale": 25.0})
+    assert torch.equal(same.params["gamma.gamma_0"],
+                       state.params["gamma.gamma_0"])

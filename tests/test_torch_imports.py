@@ -27,10 +27,12 @@ def port_modules():
 def test_every_module_is_listed():
     names = port_modules()
     for expected in ("api", "config", "data.batch", "data.split",
-                     "data.synthetic", "diffusion.process",
+                     "data.synthetic", "data.xyz", "diffusion.process",
                      "diffusion.sampler", "evals", "evals.cn2", "evals.rdf",
-                     "evals.restore_check", "nn.compressor", "nn.denoiser",
-                     "nn.egnn", "nn.gamma", "ops.angles", "ops.com",
+                     "evals.density", "evals.retrain_check", "evals.rmsd",
+                     "evals.restore_check", "nn.cn_mlp", "nn.compressor",
+                     "nn.denoiser", "nn.egnn", "nn.gamma", "ops.angles",
+                     "ops.com", "ops.kabsch", "utils.logging",
                      "ops.edge_grad", "ops.edges", "ops.egcl_knn",
                      "ops.egcl_pair", "ops.rdf", "ops.schedules",
                      "ops._build", "probes._common",
