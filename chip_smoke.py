@@ -38,7 +38,7 @@ Phases, each printed as one JSON line:
      learned schedule's own gamma table, bf16, dense route, 27 x 5, 1000
      steps; 135 of 135 accepted, K1 10010 times and the plain route never,
      scores held to the learned record's gates (the angle R²'s is logged
-     beside open fault F4, ``LEARNED_R2_FAULT``, and not enforced);
+     beside F4, ``LEARNED_R2_FAULT``, and not enforced);
  4d. one chunk through ``api.generate(return_trajectory=True)`` at 50 snr
      steps, a frame every 10: 5 frames, frame 0 the CoM-free pure noise, the
      final samples bit for bit those of the run without the trajectory;
@@ -112,7 +112,24 @@ Phases, each printed as one JSON line:
      deterministic, within the gap between the two uninterrupted runs);
      3 steps kept, K1 5 times a forward; the checkpoint's save and restore
      timed and its bytes; ``init_params_from`` and ``load_trained``; a
-     checkpoint of the flagship's weights reloaded and sampled.
+     checkpoint of the flagship's weights reloaded and sampled;
+ 20. heads: the x0 and v coordinate heads (``x_parameterization``), each:
+     the flagship's weights read as that head, one bf16 denoiser call
+     through K1 against the plain statement at t = 1, 10, 500, 1000 (raw
+     output relative L2 1e-2; the converted output's gap beside alpha /
+     sigma); the flagship's recipe with the head from a fresh init, 150
+     epochs through K1 (finite, falling loss), then 27 x 5 sampled at 250
+     strided and at 1000 steps through K1 (one round, scores logged, no
+     gate; the eps recipe's epoch timed beside, 30 epochs); and the large
+     cell's configuration (phase 10) with the head, and with eps beside it,
+     from a fresh init: one train step (finite loss) and one 250-step
+     sample through K2 (its finiteness recorded: no weights of that
+     configuration are trained);
+ 21. strided_scores: both snapshots, bf16, K1, 27 x 5 at 250 uniform
+     strided steps at the seeds of the JAX package's 250-step run
+     (``tests/fixtures/torch_port/jax_strided_250.json``), each mean
+     rdf_cos within 3 sqrt(2) x 0.0105 of JAX's mean from the same npz;
+     the 1000-step scores at the same seeds beside them.
 
 Any failed check raises, and the script exits non-zero without its result
 line. The last lines are the kernel table (with each kernel's bound: its
@@ -168,16 +185,20 @@ QUALITY = {
                  "cn2_angle_r2_min": 0.912}},
 }
 # The learned snapshot's angle R^2 falls below its gate on the card (0.589
-# at the config's seed): fault F4 of ROADMAP.md section 3, open. The R^2
-# stands on 4-5 CN2 conditions and spreads over sampling seeds in the port
-# and in the JAX package from the same npz alike (PERF.md section 6).
-LEARNED_R2_FAULT = "F4 (ROADMAP.md section 3), open"
+# at the config's seed): F4 of ROADMAP.md section 3, closed as no fault of
+# the port. The R^2 stands on 4-5 CN2 conditions and spreads over sampling
+# draws in both packages; from the JAX package's draws the port's chains
+# end on JAX's structures (tests/fixtures/torch_port/
+# replay_q_learned_r5_s2025_2025.json). Logged, not enforced.
+LEARNED_R2_FAULT = "F4 (ROADMAP.md section 3), closed: no fault of the port"
 # The flagship's atom_type_accuracy reads above the JAX record by more than
-# its gate on the card (0.9926 against 0.9704, gate 0.0162 at seed 2024),
-# and above the JAX package's own reading of the same npz (0.978-0.993 over
-# three keys, tests/fixtures/torch_port/jax_evaluate_predef_r5.json):
-# fault F7 of ROADMAP.md section 3, open; logged, not enforced.
-EVALUATE_FAULT = {"atom_type_accuracy": "F7 (ROADMAP.md section 3), open"}
+# its gate on the card (0.9926 against 0.9704, gate 0.0162 at seed 2024):
+# F7 of ROADMAP.md section 3, closed as no fault of the port. From the JAX
+# package's draws the port's chains, on the CPU and on the card, end on
+# JAX's species (tests/fixtures/torch_port/replay_q_predef_r5_2024.json).
+# Logged, not enforced.
+EVALUATE_FAULT = {"atom_type_accuracy":
+                  "F7 (ROADMAP.md section 3), closed: no fault of the port"}
 TRAJECTORY_STEPS = 50
 TRAJECTORY_EVERY = 10
 TRAIN_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port" / "train.npz"
@@ -195,6 +216,17 @@ RESUME_EPOCHS = 4      # of the checkpoint_resume phase's runs
 # a resumed run on a card that is not deterministic is held to this many
 # times the gap between two uninterrupted runs, leaf for leaf
 RESUME_SPREAD = 3.0
+HEAD_MODES = ("x0", "v")
+HEAD_T = (1, 10, 500, 1000)   # timesteps of the heads' K1-vs-plain call
+HEAD_EPOCHS = 150      # of the flagship's recipe with each head
+HEAD_BASELINE_EPOCHS = 30   # of the eps recipe, timed beside the heads
+STRIDED_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port" / \
+    "jax_strided_250.json"
+# a 250-step mean rdf_cos is held to 3 sqrt(2) sigma around the JAX
+# package's 250-step mean from the same npz, sigma the recorded spread of
+# the mean over sampling seeds (docs/quality/seed_variance.json)
+STRIDED_SIGMA = 0.0105
+STRIDED_GATE = 3 * 2 ** 0.5 * STRIDED_SIGMA
 
 
 def log(record: dict) -> None:
@@ -632,8 +664,9 @@ def held_to_record(snapshot: str, scores: dict) -> dict:
 def check_gates(quality: dict, open_fault: tuple = ()) -> None:
     """Raise when a score is outside its gate, but for the scores of
     ``open_fault``: a gate that fails on the card is kept as stated and
-    recorded as a fault of the port in ROADMAP.md §3 (it is logged with the
-    fault's name, not enforced, until the fault is closed)."""
+    recorded in ROADMAP.md §3 (F4, F7: closed as no fault of the port, whose
+    chains end on the JAX package's structures from the same draws); it is
+    logged with that entry's name and not enforced."""
     failed = [k for k, ok in quality["within_gate"].items() if not ok]
     if any(k not in open_fault for k in failed):
         raise AssertionError(f"{quality['snapshot']}: the port's score is "
@@ -1756,6 +1789,310 @@ def phase_train_learned(device, card: str) -> None:
         raise AssertionError(f"learned recipe: {rec}")
 
 
+def counting_model(cfg, params: dict, device):
+    """(denoiser, calls): a model holding ``params`` whose forward calls
+    are counted in ``calls[0]``."""
+    from diffusion_model_tpu_torch import api
+
+    model = api.denoiser_from_params(cfg, params, device)
+    calls = [0]
+    model.register_forward_pre_hook(lambda *_: calls.__setitem__(
+        0, calls[0] + 1))
+    return model, calls
+
+
+def reset_counts() -> None:
+    from diffusion_model_tpu_torch.nn import egnn
+    from diffusion_model_tpu_torch.ops import egcl_knn, egcl_pair
+
+    egcl_pair.egcl_pair_launches = egcl_knn.egcl_knn_launches = 0
+    egnn.plain_edge_calls = 0
+
+
+def read_counts() -> dict:
+    import torch
+
+    from diffusion_model_tpu_torch.nn import egnn
+    from diffusion_model_tpu_torch.ops import egcl_knn, egcl_pair
+
+    torch.cuda.synchronize()
+    return {"egcl_pair": egcl_pair.egcl_pair_launches,
+            "egcl_knn": egcl_knn.egcl_knn_launches,
+            "plain_edge_calls": egnn.plain_edge_calls}
+
+
+def phase_heads_output(cfg, params, fx, device, mode: str) -> dict:
+    """The flagship's weights read as an ``mode`` head, bf16, dense: one
+    denoiser call through K1 against the same call through the plain
+    statement, at t in ``HEAD_T``: the raw output held to K1's bf16
+    tolerance (relative L2 1e-2), the converted output's gap printed
+    beside alpha/sigma at that t."""
+    from diffusion_model_tpu_torch import api
+    from diffusion_model_tpu_torch.diffusion.process import (
+        head_out_to_eps,
+        predefined_schedule,
+    )
+
+    cfg = cfg.replace(x_parameterization=mode)
+    plain_fn = kernel_table()["egcl_pair"][1]
+    kernel = api.denoiser_from_params(cfg, params, device)
+    plain = api.denoiser_from_params(cfg, params, device, edge_fn=plain_fn)
+    schedule = predefined_schedule(cfg, device=device)
+    species, pos, spectrum, exo, _, mask = served_inputs(fx)
+    rows = {}
+    for t in HEAD_T:
+        t_norm = mask.unsqueeze(-1) * (t / cfg.num_diffusion_timestep)
+        args = (species, pos, spectrum, exo, t_norm, mask, None)
+        reset_counts()
+        kx, kh = kernel(*args)
+        k1 = read_counts()
+        px, ph = plain(*args)
+        raw = max(rel_l2(kx, px), rel_l2(kh, ph))
+        conv = rel_l2(head_out_to_eps(cfg, schedule, t, pos, kx),
+                      head_out_to_eps(cfg, schedule, t, pos, px))
+        alpha, sigma = float(schedule.alpha(t)), float(schedule.sigma(t))
+        rows[str(t)] = {"raw_rel_l2": raw, "converted_rel_l2": conv,
+                        "alpha_over_sigma": alpha / sigma,
+                        "egcl_pair_launches": k1["egcl_pair"]}
+        if not raw <= 1e-2:
+            raise AssertionError(f"{mode} head, t={t}: K1's output off the "
+                                 f"plain statement's: {rows[str(t)]}")
+        if k1 != {"egcl_pair": cfg.L, "egcl_knn": 0, "plain_edge_calls": 0}:
+            raise AssertionError(f"{mode} head, t={t}: counts {k1}")
+    return {"tolerance": "raw output relative L2 1e-2", "t": rows}
+
+
+def scored(out: dict, device) -> dict:
+    """``restore_check.score`` of a result with accepted samples, and its
+    finite fraction."""
+    from diffusion_model_tpu_torch.evals.restore_check import score
+
+    if not out["accepted"].any():
+        return {"finite_fraction": float(out["finite"].mean()),
+                "accepted": 0}
+    return score(out, GEN_PER_CONDITION, device) | {
+        "accepted": int(out["accepted"].sum())}
+
+
+def phase_heads_train(device, graphs: list, mode: str,
+                      epochs: int = HEAD_EPOCHS, sampled: bool = True) -> dict:
+    """The flagship's recipe with an ``mode`` head through ``api.train``
+    from a fresh init, bf16, dense K1, ``epochs`` epochs: a finite loss
+    that falls (the last 20 epochs' mean under the first 10's); then, if
+    ``sampled``, the 27 test conditions x 5 sampled at 250 strided and at
+    1000 steps through K1 (one round, no retry), scored; no gate on the
+    scores (the repo holds no record of this recipe with a head)."""
+    import json
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from diffusion_model_tpu_torch import api
+    from diffusion_model_tpu_torch.train.checkpoint import load_config_npz
+    from diffusion_model_tpu_torch.train.trainer import params_tree
+
+    cfg = load_config_npz(str(SNAPSHOT)).replace(x_parameterization=mode)
+    run_dir = TRAIN_RUN / f"head_{mode}"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    _, state, _ = api.train(cfg, flagship_graphs(cfg), str(run_dir),
+                            num_epochs=epochs, device=device)
+    counts = read_counts()
+    wall = time.perf_counter() - t0
+    lines = [json.loads(x) for x in open(run_dir / "metrics.jsonl")]
+    loss = [r["train_loss"] for r in lines if "train_loss" in r]
+    epoch_s = [r["epoch_s"] for r in lines if "epoch_s" in r]
+    rec = {"mode": mode, "epochs": len(loss),
+           "loss_at": {str(e): loss[e] for e in (0, 50, 100, epochs - 1)
+                       if e < len(loss)},
+           "loss_first10_mean": float(np.mean(loss[:10])),
+           "loss_last20_mean": float(np.mean(loss[-20:])),
+           "train_counts": counts, "train_wall_s": wall,
+           "epoch_s_median": (float(np.median(epoch_s)) if epoch_s
+                              else None)}
+    if len(loss) != epochs or not np.isfinite(loss).all():
+        raise AssertionError(f"{mode} head training: {rec}")
+    if not rec["loss_last20_mean"] < rec["loss_first10_mean"]:
+        raise AssertionError(f"{mode} head: the loss did not fall: {rec}")
+    if counts["egcl_knn"] or counts["plain_edge_calls"] or \
+            not counts["egcl_pair"]:
+        raise AssertionError(f"{mode} head training counts: {counts}")
+    if not sampled:
+        return rec
+    params = params_tree(state.eval_params(cfg))
+    for steps in (250, 1000):
+        scfg = cfg.replace(max_nan_retries=0, sample_steps=(
+            0 if steps == cfg.num_diffusion_timestep else steps))
+        model, calls = counting_model(scfg, params, device)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = api.generate(scfg, model, graphs,
+                           torch.Generator(device=device).manual_seed(
+                               cfg.seed),
+                           gen_num_per_spectrum=GEN_PER_CONDITION,
+                           batch_size=GEN_BATCH)
+        counts = read_counts()
+        rec[f"sample_{steps}"] = {
+            "wall_s": time.perf_counter() - t0,
+            **scored(out, device), **counts, "denoiser_calls": calls[0]}
+        if counts != {"egcl_pair": cfg.L * calls[0], "egcl_knn": 0,
+                      "plain_edge_calls": 0} or \
+                calls[0] != 2 * (steps + 1):
+            raise AssertionError(f"{mode} head sampling counts: {rec}")
+    return rec
+
+
+def phase_heads_large_cell(cfg, device, mode: str) -> dict:
+    """The large cell's configuration (``phase_large_cell``: kNN-32,
+    virtual node, residual update, 2048 atoms) with an ``mode`` head, from
+    a fresh init of the flagship's recipe: one train step (finite loss) and
+    one 250-step strided sample from the stepped weights, every EGCL
+    through K2. The sample's finiteness is recorded, not required: no
+    weights of this configuration are trained, and its chains leave the
+    finite range within 25 steps for every head, eps included, from a
+    fresh init or from the flagship's weights alike (PERF.md section 6)."""
+    import torch
+
+    from diffusion_model_tpu_torch import api
+    from diffusion_model_tpu_torch.data.batch import collate
+    from diffusion_model_tpu_torch.data.synthetic import amorphous_cell
+    from diffusion_model_tpu_torch.diffusion.process import (
+        predefined_schedule,
+    )
+    from diffusion_model_tpu_torch.diffusion.sampler import sample
+    from diffusion_model_tpu_torch.train.loss import TrainNoise
+    from diffusion_model_tpu_torch.train.trainer import Trainer, params_tree
+
+    cfg = cfg.replace(neighbor_k=LARGE_K, virtual_node=True, h_residual=True,
+                      n_max=LARGE_ATOMS, x_parameterization=mode,
+                      batch_size=1)
+    cell = collate([amorphous_cell(seed=0, num_atoms=LARGE_ATOMS)],
+                   LARGE_ATOMS, device)
+    trainer = Trainer(cfg, device=device)
+    state = trainer.init_state(cfg.seed)
+    reset_counts()
+    state, m = trainer.train_step(state, TrainNoise((cfg.seed, 12), device),
+                                  cell)
+    train = read_counts()
+    model, calls = counting_model(cfg, params_tree(state.eval_params(cfg)),
+                                  device)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = sample(model, predefined_schedule(cfg, device=device),
+                 cfg.replace(sample_steps=250),
+                 torch.Generator(device=device).manual_seed(0), cell)
+    counts = read_counts()
+    rec = {"mode": mode, "loss": float(m["loss"]),
+           "grad_norm": float(m["grad_norm"]), "train_counts": train,
+           "sample_250_s": time.perf_counter() - t0,
+           "sample_finite": bool(res.finite.all()),
+           "sample_max_abs_pos": float(res.pos.abs().max()),
+           "sample_counts": counts,
+           "denoiser_calls": calls[0]}
+    if not torch.isfinite(m["loss"]):
+        raise AssertionError(f"{mode} head, large cell: {rec}")
+    if train != {"egcl_pair": 0, "egcl_knn": cfg.L, "plain_edge_calls": 0} \
+            or counts != {"egcl_pair": 0, "egcl_knn": cfg.L * 251,
+                          "plain_edge_calls": 0}:
+        raise AssertionError(f"{mode} head, large cell counts: {rec}")
+    return rec
+
+
+def phase_heads(cfg, params, fx, graphs, device, card: str) -> dict:
+    """The x0 and v coordinate heads on the card: the converted output
+    through K1 against the plain statement, the flagship's recipe trained
+    and sampled with each head, and the large cell's kNN route through K2.
+    Returns the K1 and K2 launches of the phase."""
+    # the eps recipe's epoch on the same card, beside the heads'
+    base = phase_heads_train(device, graphs, "eps", HEAD_BASELINE_EPOCHS,
+                             sampled=False)
+    log({"phase": "heads_eps_train_baseline", "card": card, **base})
+    large = phase_heads_large_cell(cfg, device, "eps")
+    log({"phase": "heads_eps_large_cell_baseline", "card": card, **large})
+    launches = {"egcl_pair": base["train_counts"]["egcl_pair"],
+                "egcl_knn": large["train_counts"]["egcl_knn"]
+                + large["sample_counts"]["egcl_knn"]}
+    for mode in HEAD_MODES:
+        rec = {}
+        for part, run in (
+                ("output", lambda: phase_heads_output(cfg, params, fx,
+                                                      device, mode)),
+                ("train", lambda: phase_heads_train(device, graphs, mode)),
+                ("large_cell", lambda: phase_heads_large_cell(cfg, device,
+                                                              mode))):
+            rec[part] = run()
+            log({"phase": f"heads_{mode}_{part}", "card": card,
+                 **rec[part]})
+        for part in (rec["train"]["train_counts"],
+                     rec["train"]["sample_250"], rec["train"]["sample_1000"],
+                     rec["large_cell"]["train_counts"],
+                     rec["large_cell"]["sample_counts"]):
+            for k in launches:
+                launches[k] += part[k]
+        launches["egcl_pair"] += cfg.L * len(HEAD_T)
+    log({"phase": "heads", "card": card, "launches": launches})
+    return launches
+
+
+def phase_strided_scores(device, card: str) -> int:
+    """Both snapshots, bf16, dense K1, 27 x 5 at 250 uniform strided steps,
+    at the seeds of the JAX package's 250-step run
+    (``tests/fixtures/torch_port/jax_strided_250.json``): each mean rdf_cos
+    within 3 sqrt(2) sigma of JAX's mean over its keys from the same npz
+    (sigma ``STRIDED_SIGMA``); the angle R^2 (beside F4) and the
+    atom_type_accuracy (beside F7) logged, not gated; the 1000-step scores
+    at the same seeds printed beside them. Returns the K1 launches of the
+    250-step runs."""
+    import json
+
+    import numpy as np
+
+    from diffusion_model_tpu_torch.evals.restore_check import restore_check
+
+    fx = json.loads(STRIDED_FIXTURE.read_text())
+    rows = {}
+    launches = 0
+    for jrow in fx["rows"]:
+        npz, seed = jrow["npz"], jrow["seed"]
+        jax_mean = float(np.mean([r["rdf_cos_mean"] for r in fx["rows"]
+                                  if r["npz"] == npz]))
+        reset_counts()
+        got = restore_check(str(ROOT / npz), device, NUM_GRAPHS, SHELLS,
+                            seed=seed, sample_steps=fx["sample_steps"],
+                            sample_grid=fx["sample_grid"])
+        counts = read_counts()
+        launches += counts["egcl_pair"]
+        full = restore_check(str(ROOT / npz), device, NUM_GRAPHS, SHELLS,
+                             seed=seed)
+        keys = ("accepted", "rdf_cos_mean", "rdf_cos_median",
+                "cn2_angle_r2", "atom_type_accuracy", "gen_seconds")
+        row = {"port_250": {k: got[k] for k in keys}, "counts_250": counts,
+               "port_1000": {k: full[k] for k in keys},
+               "jax_250": {k: jrow[k] for k in keys[:-1]},
+               "jax_250_mean_rdf_cos_over_keys": jax_mean,
+               "gap": got["rdf_cos_mean"] - jax_mean,
+               "gate": STRIDED_GATE,
+               "notes": {"cn2_angle_r2": LEARNED_R2_FAULT
+                         if "learned" in npz else "logged",
+                         "atom_type_accuracy": EVALUATE_FAULT[
+                             "atom_type_accuracy"]}}
+        rows[f"{Path(npz).stem}@{seed}"] = row
+        if got["sample_steps"] != 250 or got["compute_dtype"] != "bfloat16":
+            raise AssertionError(f"strided scoring ran {got}")
+        if counts["egcl_knn"] or counts["plain_edge_calls"] or \
+                counts["egcl_pair"] < 2 * 251 * 5:
+            raise AssertionError(f"strided scoring counts: {counts}")
+        if not abs(row["gap"]) <= STRIDED_GATE:
+            raise AssertionError(f"{npz} at seed {seed}: 250-step rdf_cos "
+                                 f"off JAX's 250-step mean: {row}")
+    log({"phase": "strided_scores", "card": card, "steps": 250,
+         "grid": fx["sample_grid"], "rows": rows,
+         "jax_fixture": str(STRIDED_FIXTURE.relative_to(ROOT))})
+    return launches
+
+
 def edge_flops(f1: int, fm: int, h: int = 0) -> int:
     """Tensor-core FLOPs of one live edge: both second-layer products, and
     for K2 the j-side first layer (4 H F1)."""
@@ -2060,6 +2397,10 @@ def main() -> int:
     kernels_only("train_learned", phase_train_learned, device, card)
     resume = kernels_only("checkpoint_resume", phase_checkpoint_resume,
                           device, card)
+    heads = kernels_only("heads", phase_heads, cfg, params, fx, graphs,
+                         device, card)
+    strided = kernels_only("strided_scores", phase_strided_scores, device,
+                           card)
     log({"phase": "flagship_routes", "plain_edge_calls": plain_calls,
          "egcl_pair_launches_served": pair_launches,
          "egcl_knn_launches_served": knn_launches,
@@ -2078,12 +2419,15 @@ def main() -> int:
          "launches": pair_launches, **pair,
          "train_launches": dense_train["launches"]["egcl_pair"],
          "resume_launches": resume["launches"]["egcl_pair"],
+         "heads_launches": heads["egcl_pair"],
+         "strided_launches": strided,
          "train_grad": grads["egcl_pair_64x16_bfloat16"]},
         {"name": "egcl_knn", "route": "cuda",
          "source": "diffusion_model_tpu_torch/csrc/egcl_knn.cu",
          "replaces": "diffusion_model_tpu/ops/egcl_pallas_sparse.py:177",
          "launches": knn_launches, **knn,
          "train_launches": knn_train["launches"]["egcl_knn"],
+         "heads_launches": heads["egcl_knn"],
          "train_grad": grads["egcl_knn_64x16_k15_bfloat16"]},
         *probes,
     ]})

@@ -226,10 +226,18 @@ def load_trained(run_dir: str, cfg: Config, device=None):
     ``diffusion_model_tpu.api.load_trained``: sample at
     ``state.eval_params(cfg)`` (for instance ``generate(cfg,
     params_tree(state.eval_params(cfg)), ...)``). On the card unless
-    ``device`` names the CPU; a checkpoint that does not load raises."""
+    ``device`` names the CPU; a checkpoint that does not load raises, and
+    so does one trained with another coordinate head
+    (``x_parameterization``) than ``cfg``'s."""
     trainer = Trainer(cfg, device=_device(device, "api.load_trained"))
-    state, _ = restore_checkpoint(os.path.join(run_dir, "checkpoints"),
-                                  trainer)
+    state, saved = restore_checkpoint(os.path.join(run_dir, "checkpoints"),
+                                      trainer)
+    if saved.x_parameterization != cfg.x_parameterization:
+        # the weights answer in the saved head's coordinates
+        raise ValueError(
+            f"the run was trained with x_parameterization="
+            f"{saved.x_parameterization!r}, cfg has "
+            f"{cfg.x_parameterization!r}")
     return trainer, state
 
 

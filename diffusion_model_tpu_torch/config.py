@@ -34,7 +34,6 @@ _SUPPORTED = (
     ("global_radius_feature", False),
     ("compat_scalar_norm", False),
     ("ring_sample", False),
-    ("x_parameterization", "eps"),
     ("spectrum_to_latent", False),
     ("x_size", 3),
     ("d_size", 1),
@@ -93,7 +92,7 @@ class Config:
     noise_schedule: str = "predefined"   # or "learned": params["gamma"]
     noise_precision: float = 1e-5
     noise_schedule_power: float = 2.0
-    x_parameterization: str = "eps"
+    x_parameterization: str = "eps"   # the coordinate head: or "x0", "v"
     diffuse_species: bool = True
     seed: int = 2024
     # the learned schedule's start ("reference": VDM endpoints; "polynomial":
@@ -163,6 +162,10 @@ class Config:
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r} is not ported yet "
                     f"(the port runs {name}={supported!r})")
+        if self.x_parameterization not in ("eps", "x0", "v"):
+            raise ValueError(
+                f"x_parameterization={self.x_parameterization!r} "
+                "must be 'eps', 'x0' or 'v'")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(
                 f"compute_dtype={self.compute_dtype!r} must be 'float32' "

@@ -15,6 +15,10 @@ draw it from explicit ``torch.Generator`` objects), so the same draws can be fed
 to the JAX package and to the port. Timesteps are Python ints or integer
 tensors; per-graph coefficients broadcast over the node and feature axes
 (``_bcast``).
+
+The coordinate head may be read as epsilon (the default), as the clean
+structure's displacement ("x0") or as the velocity ("v");
+``head_out_to_eps`` turns the last two into the epsilon every step reads.
 """
 
 from __future__ import annotations
@@ -77,6 +81,55 @@ def _bcast(coef: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     coef = torch.as_tensor(coef, device=z.device)
     return coef.reshape(coef.shape + (1,) * (z.dim() - coef.dim())).to(
         z.dtype)
+
+
+def x_param_is_x0(cfg: Config) -> bool:
+    """True iff the coordinate head needs an eps-space conversion (the
+    name predates "v": it answers "non-eps?"). ``Config`` refuses any
+    value but "eps", "x0" and "v" when it is built."""
+    return cfg.x_parameterization != "eps"
+
+
+def x0_out_to_eps(schedule: Schedule, t, z: torch.Tensor,
+                  out: torch.Tensor) -> torch.Tensor:
+    """An x0-parameterised coordinate head read as an epsilon prediction:
+    ``x0_hat = z_t + out``, so
+
+        eps_hat = ((1 - alpha_t)/sigma_t) z_t - (alpha_t/sigma_t) out
+
+    The coefficients are formed in the schedule's float32 before they meet
+    ``out``: in bfloat16 ``1 - alpha_t`` is 0 at low t (alpha ~ 1 - 1e-5).
+    Padded rows stay zero and the result stays CoM-free (a combination of
+    two masked CoM-free fields). The oracle ``out = x0 - z_t`` gives back
+    the exact forward noise."""
+    alpha_t = schedule.alpha(t)
+    sigma_t = schedule.sigma(t)
+    coef_z = (1.0 - alpha_t) / sigma_t
+    coef_out = alpha_t / sigma_t
+    return _bcast(coef_z, z) * z - _bcast(coef_out, out) * out
+
+
+def v_out_to_eps(schedule: Schedule, t, z: torch.Tensor,
+                 out: torch.Tensor) -> torch.Tensor:
+    """A v-parameterised coordinate head (``v = alpha_t eps - sigma_t x0``)
+    read as an epsilon prediction: ``eps_hat = alpha_t out + sigma_t z_t``
+    (with alpha^2 + sigma^2 = 1). The oracle ``out = alpha eps - sigma x0``
+    gives back the exact forward noise."""
+    alpha_t = schedule.alpha(t)
+    sigma_t = schedule.sigma(t)
+    return _bcast(alpha_t, out) * out + _bcast(sigma_t, z) * z
+
+
+def head_out_to_eps(cfg, schedule: Schedule, t, z: torch.Tensor,
+                    out: torch.Tensor) -> torch.Tensor:
+    """The coordinate head's conversion for ``cfg.x_parameterization``
+    "x0" or "v"; raises for any other value."""
+    if cfg.x_parameterization == "x0":
+        return x0_out_to_eps(schedule, t, z, out)
+    if cfg.x_parameterization == "v":
+        return v_out_to_eps(schedule, t, z, out)
+    raise ValueError(
+        f"no conversion for x_parameterization={cfg.x_parameterization!r}")
 
 
 def diffuse_zero_to_t(schedule: Schedule, noise: torch.Tensor,

@@ -24,7 +24,9 @@ from diffusion_model_tpu_torch.data.batch import GraphBatch
 from diffusion_model_tpu_torch.diffusion.process import (
     Schedule,
     final_denoise_step,
+    head_out_to_eps,
     reverse_diffuse_one_step,
+    x_param_is_x0,
 )
 from diffusion_model_tpu_torch.ops.com import remove_mean
 from diffusion_model_tpu_torch.ops.edges import knn_edges
@@ -86,6 +88,100 @@ def _strided(schedule: Schedule, cfg: Config):
             idx.to(torch.float32) / T, steps)
 
 
+class ReverseChain:
+    """The pieces of one reverse chain over a conditioning batch: the
+    denoiser call at a grid index (guidance blend, then the coordinate
+    head read as epsilon), one ancestral step and the t=0 epilogue.
+    ``sample`` strings them together; a caller can also start any step
+    from a state of its own (another implementation's, to hold the two
+    step by step).
+
+    ``schedule`` is the full ``T+1`` table; the chain keeps the one over
+    its reverse grid (``cfg.sample_steps`` strided entries, else all), and
+    ``t`` everywhere is an index into that grid.
+    """
+
+    def __init__(self, denoise_fn: Callable, schedule: Schedule, cfg: Config,
+                 cond: GraphBatch):
+        self.denoise_fn = denoise_fn
+        self.cfg = cfg
+        self.cond = cond
+        self.schedule, self.t_norm_table, self.steps = _strided(schedule, cfg)
+        self.x0_mode = x_param_is_x0(cfg)
+        self.mask = cond.mask
+        self.m3 = cond.mask.unsqueeze(-1)
+        self.scale = cfg.onehot_scaling_factor
+        self.stochastic = (not cfg.deterministic_sampling
+                           and cfg.sample_noise_scale != 0)
+        self.step_kw = dict(mask=cond.mask,
+                            deterministic=cfg.deterministic_sampling,
+                            noise_scale=cfg.sample_noise_scale)
+
+    def denoise(self, pos: torch.Tensor, h: torch.Tensor, t: int):
+        """(eps_x, eps_h) at grid index ``t``."""
+        cfg, cond, mask = self.cfg, self.cond, self.mask
+        t_norm = self.m3 * self.t_norm_table[t]
+        edges = (knn_edges(pos, mask, cfg.neighbor_k) if cfg.neighbor_k
+                 else None)
+        h_in = self.scale * h
+        eps_x, eps_h = self.denoise_fn(h_in, pos, cond.spectrum, cond.exo,
+                                       t_norm, mask, edges)
+        if cfg.guidance_scale > 0:
+            # classifier-free guidance: (1+w) * cond - w * uncond
+            ex_u, eh_u = self.denoise_fn(h_in, pos,
+                                         torch.zeros_like(cond.spectrum),
+                                         cond.exo, t_norm, mask, edges)
+            w = cfg.guidance_scale
+            eps_x = (1.0 + w) * eps_x - w * ex_u
+            eps_h = (1.0 + w) * eps_h - w * eh_u
+        if self.x0_mode:
+            # after the blend: both conversions are affine in the output
+            # with a z-term that does not depend on it, so they commute
+            # with (1+w)c - w u. The strided table's entry t is the noise
+            # level this z carries. The species channel stays epsilon.
+            eps_x = head_out_to_eps(cfg, self.schedule, t, pos, eps_x)
+        return eps_x, eps_h
+
+    def draws(self, noise: NoiseSource, pos: torch.Tensor, h: torch.Tensor):
+        """(position noise, species noise) of one step, in the fixed order;
+        (None, None) when the chain is deterministic."""
+        if not self.stochastic:
+            return None, None
+        pos_noise = noise(pos.shape)
+        return pos_noise, (noise(h.shape) if self.cfg.diffuse_species
+                           else None)
+
+    def step(self, pos: torch.Tensor, h: torch.Tensor, t: int,
+             pos_noise: Optional[torch.Tensor],
+             h_noise: Optional[torch.Tensor]):
+        """The state at grid index ``t - 1`` from the one at ``t``."""
+        eps_x, eps_h = self.denoise(pos, h, t)
+        new_pos = reverse_diffuse_one_step(self.schedule, pos_noise, pos,
+                                           eps_x, t, mode="pos",
+                                           **self.step_kw)
+        if self.cfg.diffuse_species:
+            h = reverse_diffuse_one_step(self.schedule, h_noise,
+                                         self.scale * h, eps_h, t, mode="h",
+                                         **self.step_kw)
+        return new_pos, h
+
+    def epilogue(self, pos: torch.Tensor, h: torch.Tensor,
+                 pos_noise: Optional[torch.Tensor],
+                 h_noise: Optional[torch.Tensor]):
+        """(pos, h, species) after the t=0 step: index 0 of the (strided)
+        table is schedule entry 0."""
+        eps_x, eps_h = self.denoise(pos, h, 0)
+        pos = final_denoise_step(self.schedule, pos_noise, pos, eps_x,
+                                 mode="pos", **self.step_kw)
+        if not self.cfg.diffuse_species:
+            return pos, h, self.cond.species
+        h = final_denoise_step(self.schedule, h_noise, self.scale * h, eps_h,
+                               mode="h", **self.step_kw)
+        species = (F.one_hot(h.argmax(dim=-1), self.cfg.atom_type_size)
+                   .to(pos.dtype) * self.m3)
+        return pos, h, species
+
+
 @torch.no_grad()
 def sample(denoise_fn: Callable, schedule: Schedule, cfg: Config,
            generator: Optional[torch.Generator], cond: GraphBatch,
@@ -97,7 +193,9 @@ def sample(denoise_fn: Callable, schedule: Schedule, cfg: Config,
       denoise_fn: ``(species_ch, pos, spectrum, exo, t_norm, mask, edges)
         -> (eps_x, eps_h)``, e.g. a ``DiffusionDenoiser``. ``edges`` is None
         (dense topology) unless ``cfg.neighbor_k`` is set; then it is the
-        kNN lists of the current positions, rebuilt at every call.
+        kNN lists of the current positions, rebuilt at every call. With
+        ``cfg.x_parameterization`` "x0" or "v" its coordinate output is
+        read as that head and converted to epsilon.
       schedule: the full ``T+1`` schedule table, on ``cond``'s device.
       generator: source of the default noise; unused when ``noise`` is set.
       cond: conditioning batch; its ``spectrum``, ``exo`` and ``mask`` drive
@@ -112,65 +210,21 @@ def sample(denoise_fn: Callable, schedule: Schedule, cfg: Config,
         def noise(shape):
             return torch.randn(tuple(shape), generator=generator,
                                device=device)
-    schedule, t_norm_table, steps = _strided(schedule, cfg)
-    scale = cfg.onehot_scaling_factor
+    chain = ReverseChain(denoise_fn, schedule, cfg, cond)
+    steps = chain.steps
     mask = cond.mask
     b, n = mask.shape
-    a_dim = cfg.atom_type_size
-    m3 = mask.unsqueeze(-1)
-    stochastic = not cfg.deterministic_sampling and cfg.sample_noise_scale != 0
-    step_kw = dict(mask=mask, deterministic=cfg.deterministic_sampling,
-                   noise_scale=cfg.sample_noise_scale)
 
     pos = remove_mean(noise((b, n, 3)), mask)
-    h = noise((b, n, a_dim)) * m3 if cfg.diffuse_species else cond.species
-
-    def denoise(pos, h, t):
-        t_norm = m3 * t_norm_table[t]
-        edges = (knn_edges(pos, mask, cfg.neighbor_k) if cfg.neighbor_k
-                 else None)
-        eps_x, eps_h = denoise_fn(scale * h, pos, cond.spectrum, cond.exo,
-                                  t_norm, mask, edges)
-        if cfg.guidance_scale > 0:
-            # classifier-free guidance: (1+w) * cond - w * uncond
-            ex_u, eh_u = denoise_fn(scale * h, pos,
-                                    torch.zeros_like(cond.spectrum),
-                                    cond.exo, t_norm, mask, edges)
-            w = cfg.guidance_scale
-            eps_x = (1.0 + w) * eps_x - w * ex_u
-            eps_h = (1.0 + w) * eps_h - w * eh_u
-        return eps_x, eps_h
-
-    def draws():
-        if not stochastic:
-            return None, None
-        pos_noise = noise(pos.shape)
-        return pos_noise, (noise(h.shape) if cfg.diffuse_species else None)
+    h = (noise((b, n, cfg.atom_type_size)) * chain.m3 if cfg.diffuse_species
+         else cond.species)
 
     frames = []
     for t in range(steps, 0, -1):
         if return_trajectory and (steps - t) % cfg.snapshot_every == 0:
             frames.append((pos, h))
-        eps_x, eps_h = denoise(pos, h, t)
-        pos_noise, h_noise = draws()
-        new_pos = reverse_diffuse_one_step(schedule, pos_noise, pos, eps_x, t,
-                                           mode="pos", **step_kw)
-        if cfg.diffuse_species:
-            h = reverse_diffuse_one_step(schedule, h_noise, scale * h, eps_h,
-                                         t, mode="h", **step_kw)
-        pos = new_pos
-
-    # t=0 epilogue: index 0 of the (strided) table is schedule entry 0
-    eps_x, eps_h = denoise(pos, h, 0)
-    pos_noise, h_noise = draws()
-    pos = final_denoise_step(schedule, pos_noise, pos, eps_x, mode="pos",
-                             **step_kw)
-    if cfg.diffuse_species:
-        h = final_denoise_step(schedule, h_noise, scale * h, eps_h, mode="h",
-                               **step_kw)
-        species = F.one_hot(h.argmax(dim=-1), a_dim).to(pos.dtype) * m3
-    else:
-        species = cond.species
+        pos, h = chain.step(pos, h, t, *chain.draws(noise, pos, h))
+    pos, h, species = chain.epilogue(pos, h, *chain.draws(noise, pos, h))
 
     flat_pos, flat_h = pos.reshape(b, -1), h.reshape(b, -1)
     finite = (torch.isfinite(flat_pos).all(dim=-1)

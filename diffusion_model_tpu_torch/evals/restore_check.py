@@ -10,6 +10,7 @@ Si-exO-Si angles over the CN2 conditions.
 
     python -m diffusion_model_tpu_torch.evals.restore_check \\
         artifacts/q_predef_r5.npz [--neighbor_k 15] [--out score.json]
+        [--sample_steps 250 --sample_grid uniform]
 
 samples on the card (``--device cpu`` on the host) and prints one JSON
 line.
@@ -33,6 +34,10 @@ from diffusion_model_tpu_torch.data.synthetic import synthetic_sio2_dataset
 from diffusion_model_tpu_torch.evals.cn2 import (
     conditional_angle_parity,
     r2score,
+)
+from diffusion_model_tpu_torch.evals.density import (
+    density_accuracy,
+    o_density,
 )
 from diffusion_model_tpu_torch.evals.rdf import evaluate_rdf_lists
 from diffusion_model_tpu_torch.train.checkpoint import (
@@ -79,7 +84,9 @@ def score(results: dict, group: int, device="cuda") -> dict:
 def restore_check(npz: str, device="cuda", num: int = 256, shells: int = 2,
                   neighbor_k: Optional[int] = None,
                   seed: Optional[int] = None,
-                  compute_dtype: Optional[str] = None) -> dict:
+                  compute_dtype: Optional[str] = None,
+                  sample_steps: Optional[int] = None,
+                  sample_grid: Optional[str] = None) -> dict:
     """Generate for every test condition of ``npz`` and score the result.
 
     Args:
@@ -91,16 +98,25 @@ def restore_check(npz: str, device="cuda", num: int = 256, shells: int = 2,
       seed: the sampling generator's seed (default the config's), to
         measure the spread of the scores over sampling draws.
       compute_dtype: the MLP matmuls' dtype (default the config's).
+      sample_steps, sample_grid: sample over this many strided entries of
+        the schedule, on the "uniform" or the "snr" grid (default the
+        config's; ``sample_steps`` 0 is every step).
 
     Returns:
-      the scores (``score``) with the sample counts, the condition count,
-      the device and the generation's wall seconds.
+      the scores (``score``) and the share of accepted samples whose O
+      fraction is the condition's (``api.evaluate``'s
+      ``atom_type_accuracy``), with the sample counts, the condition count,
+      the steps and grid, the device and the generation's wall seconds.
     """
     cfg = load_config_npz(npz)
     if neighbor_k is not None:
         cfg = cfg.replace(neighbor_k=neighbor_k)
     if compute_dtype is not None:
         cfg = cfg.replace(compute_dtype=compute_dtype)
+    if sample_steps is not None:
+        cfg = cfg.replace(sample_steps=sample_steps)
+    if sample_grid is not None:
+        cfg = cfg.replace(sample_grid=sample_grid)
     params = load_params_npz(npz)
     test_set = held_out_conditions(cfg, num, shells)
     device = torch.device(device)
@@ -109,6 +125,10 @@ def restore_check(npz: str, device="cuda", num: int = 256, shells: int = 2,
     t0 = time.perf_counter()
     results = api.generate(cfg, params, test_set, generator, device=device)
     gen_s = time.perf_counter() - t0
+    keep = results["accepted"]
+    accuracy = density_accuracy(
+        o_density(results["original_species"][keep], results["mask"][keep]),
+        o_density(results["generated_species"][keep], results["mask"][keep]))
     return {
         "npz": npz,
         "seed": seed,
@@ -116,10 +136,13 @@ def restore_check(npz: str, device="cuda", num: int = 256, shells: int = 2,
                    if device.type == "cuda" else device.type),
         "compute_dtype": cfg.compute_dtype,
         "neighbor_k": cfg.neighbor_k,
+        "sample_steps": cfg.sample_steps or cfg.num_diffusion_timestep,
+        "sample_grid": cfg.sample_grid,
         "n_test_conditions": len(test_set),
         "samples": int(len(results["accepted"])),
         "accepted": int(results["accepted"].sum()),
         **score(results, cfg.gen_num_per_spectrum, device),
+        "atom_type_accuracy": accuracy,
         "gen_seconds": gen_s,
     }
 
@@ -136,10 +159,15 @@ def main(argv=None) -> int:
                    help="sampling seed (default the snapshot's)")
     p.add_argument("--compute_dtype", choices=("float32", "bfloat16"),
                    default=None, help="default the snapshot's")
+    p.add_argument("--sample_steps", type=int, default=None,
+                   help="strided reverse steps (default the snapshot's)")
+    p.add_argument("--sample_grid", choices=("uniform", "snr"), default=None,
+                   help="the strided grid (default the snapshot's)")
     p.add_argument("--out", default=None, help="also write the JSON here")
     args = p.parse_args(argv)
     summary = restore_check(args.npz, args.device, args.num, args.shells,
-                            args.neighbor_k, args.seed, args.compute_dtype)
+                            args.neighbor_k, args.seed, args.compute_dtype,
+                            args.sample_steps, args.sample_grid)
     print(json.dumps(summary))
     if args.out:
         with open(args.out, "w") as f:

@@ -34,8 +34,10 @@ from diffusion_model_tpu_torch.config import Config
 from diffusion_model_tpu_torch.data.batch import GraphBatch
 from diffusion_model_tpu_torch.diffusion.process import (
     Schedule,
+    head_out_to_eps,
     learned_schedule,
     predefined_schedule,
+    x_param_is_x0,
 )
 from diffusion_model_tpu_torch.nn.denoiser import DiffusionDenoiser
 from diffusion_model_tpu_torch.nn.gamma import (
@@ -253,6 +255,11 @@ class Trainer:
             spectrum = spectrum * keep[:, None, None].to(spectrum.dtype)
         eps_x_pred, eps_h_pred = model(h_t, pos_t, spectrum, batch.exo,
                                        t_norm, batch.mask, edges)
+        if x_param_is_x0(cfg):
+            # an x0 or v coordinate head, read as epsilon at the per-graph
+            # t (through a learned schedule's table: gamma trains through
+            # the conversion too); the species channel stays epsilon
+            eps_x_pred = head_out_to_eps(cfg, schedule, t, pos_t, eps_x_pred)
         loss, sum_sq, num_nodes = epsilon_loss(
             eps_x_pred, eps_h_pred, eps_pos, eps_h, batch.mask,
             include_h=cfg.diffuse_species, weights=t_band_weights(cfg, t))

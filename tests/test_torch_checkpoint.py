@@ -90,13 +90,33 @@ def test_large_cell_settings_carry_over(field, value):
 @pytest.mark.parametrize("field,value", [
     ("edge_rbf", 8), ("global_radius_feature", True),
     ("compat_scalar_norm", True), ("ring_sample", True),
-    ("x_parameterization", "x0"), ("spectrum_to_latent", True),
+    ("spectrum_to_latent", True),
 ])
 def test_unported_settings_raise_naming_the_field(field, value):
     d = {field: value}
     jax_from_dict(d)   # a valid config for the JAX package
     with pytest.raises(NotImplementedError, match=field):
         port_config.from_dict(d)
+
+
+@pytest.mark.parametrize("value", ["eps", "x0", "v", "foo"])
+def test_coordinate_heads_accepted_and_others_refused(value):
+    """"eps", "x0" and "v" carry over as the JAX package reads them; any
+    other value raises ValueError naming the field, in the port when the
+    config is built, in the JAX package when the head is first read."""
+    from diffusion_model_tpu.diffusion.process import x_param_is_x0
+
+    d = {"x_parameterization": value}
+    jcfg = jax_from_dict(d)
+    if value == "foo":
+        with pytest.raises(ValueError, match="x_parameterization"):
+            x_param_is_x0(jcfg)
+        with pytest.raises(ValueError, match="x_parameterization"):
+            port_config.from_dict(d)
+        return
+    cfg = port_config.from_dict(d)
+    assert cfg.x_parameterization == jcfg.x_parameterization == value
+    assert port_config.from_dict(cfg.to_dict()) == cfg
 
 
 def test_learned_schedule_snapshot_is_refused():

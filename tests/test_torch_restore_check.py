@@ -208,3 +208,51 @@ def test_restore_check_scores_its_own_generation(tmp_path, capsys):
     assert_scores_close({k: printed[k] for k in SCORES},
                         score(results, cfg.gen_num_per_spectrum, "cpu"),
                         tol=0.0)
+
+
+@pytest.mark.parametrize("grid", ["uniform", "snr"])
+def test_restore_check_samples_strided(tmp_path, capsys, monkeypatch, grid):
+    """``--sample_steps 250 --sample_grid <grid>`` on a tiny snapshot (one
+    EGCL of width 16, 1000-step schedule, no retry: an untrained chain is
+    not accepted): the chunk reaches ``sample`` with the 250-step grid of
+    the schedule (251 denoiser calls), and the JSON line names the steps
+    and the grid."""
+    from diffusion_model_tpu_torch.config import Config
+    from diffusion_model_tpu_torch.diffusion import sampler
+    from diffusion_model_tpu_torch.nn.denoiser import DiffusionDenoiser
+    from diffusion_model_tpu_torch.train.checkpoint import save_params_npz
+    from diffusion_model_tpu_torch.train.trainer import Trainer, params_tree
+
+    cfg = Config(L=1, m_hidden_size=16, h_hidden_size=16, x_hidden_size=16,
+                 m_size=8, compressed_spectrum_size=8,
+                 compressor_hidden_dim=(16,), optimizer="Adam",
+                 max_nan_retries=0)
+    state = Trainer(cfg, device="cpu").init_state(0)
+    path = tmp_path / "tiny.npz"
+    save_params_npz(params_tree(state.eval_params(cfg)), str(path), cfg=cfg)
+    grids, calls = [], [0]
+    strided = sampler._strided
+
+    def recording(schedule, c):
+        out = strided(schedule, c)
+        grids.append((c.sample_steps, c.sample_grid, out[2],
+                      out[0].alphas.shape[0]))
+        return out
+
+    forward = DiffusionDenoiser.forward
+
+    def counting(self, *args):
+        calls[0] += 1
+        return forward(self, *args)
+
+    monkeypatch.setattr(sampler, "_strided", recording)
+    monkeypatch.setattr(DiffusionDenoiser, "forward", counting)
+    assert restore_check.main([str(path), "--device", "cpu", "--num", "20",
+                               "--sample_steps", "250", "--sample_grid",
+                               grid]) == 0
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed["sample_steps"] == 250
+    assert printed["sample_grid"] == grid
+    assert printed["samples"] == 10
+    assert grids == [(250, grid, 250, 251)]
+    assert calls[0] == 251
