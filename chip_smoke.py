@@ -129,7 +129,19 @@ Phases, each printed as one JSON line:
      strided steps at the seeds of the JAX package's 250-step run
      (``tests/fixtures/torch_port/jax_strided_250.json``), each mean
      rdf_cos within 3 sqrt(2) x 0.0105 of JAX's mean from the same npz;
-     the 1000-step scores at the same seeds beside them.
+     the 1000-step scores at the same seeds beside them;
+ 22. variants: the h_residual + virtual_node + edge_rbf8 arm of
+     ``docs/quality/size192net_lever_sweep.json`` and the same recipe with
+     ``global_radius_feature`` in place of the RBF (``VARIANTS``: kNN-32,
+     L=5, 1024 / 256, bf16; the flagship's EGCL weights and seeded non-zero
+     arrays for what each adds, so speed and routes only), each: the
+     denoiser on 2 x 192 kNN-32 cells and on 80 x 16 dense graphs (the rbf
+     model's plain route on the card against the CPU; the radius model's
+     K1 / K2 against their plain statements), 250 strided steps of one
+     192-atom cell (s per structure; an rbf model's every EGCL through the
+     plain statement and none through K1 / K2, a radius model's through
+     K2), and three train steps at batch 32 of 160-192-atom cells (ms,
+     the device's idle share from one more profiled step, peak memory).
 
 Any failed check raises, and the script exits non-zero without its result
 line. The last lines are the kernel table (with each kernel's bound: its
@@ -141,6 +153,7 @@ larger), the card's name and power limit, and ``{"ok": true, "device":
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -227,6 +240,16 @@ STRIDED_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port" / \
 # the mean over sampling seeds (docs/quality/seed_variance.json)
 STRIDED_SIGMA = 0.0105
 STRIDED_GATE = 3 * 2 ** 0.5 * STRIDED_SIGMA
+# the variants phase: the h_residual + virtual_node + edge_rbf8 arm of
+# docs/quality/size192net_lever_sweep.json (examples/size_generalization.py
+# --edge_rbf 8, lr 2e-4, clip 1), and the same recipe with --global_radius
+VARIANTS = {"rbf": dict(edge_rbf=8, edge_rbf_rmax=8.0),
+            "radius": dict(global_radius_feature=True)}
+VARIANT_ATOMS = 192
+VARIANT_TRAIN_ATOMS = (160, 192)   # the sweep's train cells
+VARIANT_TRAIN_B = 32
+VARIANT_TRAIN_STEPS = 3
+VARIANT_STEPS = 250
 
 
 def log(record: dict) -> None:
@@ -2036,6 +2059,331 @@ def phase_heads(cfg, params, fx, graphs, device, card: str) -> dict:
     return launches
 
 
+def variant_cfg(cfg, name: str):
+    """The flagship's config as the sweep's arm ``name``: kNN-32, virtual
+    node, residual update, cells of up to 192 atoms, and the variant."""
+    return cfg.replace(neighbor_k=LARGE_K, virtual_node=True, h_residual=True,
+                       n_max=VARIANT_ATOMS, **VARIANTS[name])
+
+
+def variant_params(params: dict, cfg, seed: int = 0) -> dict:
+    """The flagship's EGCL weights with seeded arrays for what the variant
+    adds, every one non-zero (zero, either feature is an exact no-op): a
+    radius row in each first layer's i- and j-blocks and in ``mlp_h_dense0``,
+    a radius output channel of ``mlp_h_dense1`` (the column after exO), and
+    the gate; ``rbf_m`` / ``rbf_x``; the virtual node's arrays
+    (``with_vnode_params``). Speed and routes only: no weights of either
+    variant are trained."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    den = dict(params["denoiser"]["params"])
+    egnn = dict(den["egnn"])
+    if cfg.global_radius_feature:
+        h = cfg.h_size - 1                   # the flagship's node width
+        col = h - cfg.t_size                 # the radius sits before t/T
+
+        def row(width, fan_in):
+            return rng.normal(size=width) * fan_in ** -0.5
+
+        for l in range(cfg.L):
+            layer = {k: dict(v) for k, v in egnn[f"egcl_{l}"].items()}
+            for name in ("mlp_m_dense0", "mlp_x_dense0"):
+                k = layer[name]["kernel"]
+                f, fan = k.shape[1], k.shape[0]
+                layer[name]["kernel"] = np.concatenate([
+                    np.insert(k[:h], col, row(f, fan), axis=0),
+                    np.insert(k[h:2 * h], col, row(f, fan), axis=0),
+                    k[2 * h:]]).astype(np.float32)
+            k = layer["mlp_h_dense0"]["kernel"]
+            layer["mlp_h_dense0"]["kernel"] = np.insert(
+                k, col, row(k.shape[1], k.shape[0]), axis=0).astype(
+                    np.float32)
+            k = layer["mlp_h_dense1"]["kernel"]
+            layer["mlp_h_dense1"]["kernel"] = np.insert(
+                k, col, row(k.shape[0], k.shape[0]), axis=1).astype(
+                    np.float32)
+            layer["mlp_h_dense1"]["bias"] = np.insert(
+                layer["mlp_h_dense1"]["bias"], col, 0.0).astype(np.float32)
+            egnn[f"egcl_{l}"] = layer
+        den["radius_feature_gate"] = rng.uniform(0.5, 1.0, 1).astype(
+            np.float32)
+    if cfg.edge_rbf:
+        for l in range(cfg.L):
+            layer = dict(egnn[f"egcl_{l}"])
+            for name, width in (("rbf_m", cfg.m_hidden_size),
+                                ("rbf_x", cfg.x_hidden_size)):
+                layer[name] = {"kernel": (rng.normal(
+                    size=(cfg.edge_rbf, width)) * cfg.edge_rbf ** -0.5
+                ).astype(np.float32)}
+            egnn[f"egcl_{l}"] = layer
+    den["egnn"] = egnn
+    return with_vnode_params(dict(params, denoiser={"params": den}), cfg,
+                             seed + 1)
+
+
+def variant_train_cells(cfg, count: int) -> list:
+    """``count`` amorphous cells of 160-192 atoms (sizes from the seed)."""
+    import numpy as np
+
+    from diffusion_model_tpu_torch.data.synthetic import amorphous_cell
+
+    sizes = np.random.default_rng(cfg.seed).integers(
+        VARIANT_TRAIN_ATOMS[0], VARIANT_TRAIN_ATOMS[1] + 1, size=count)
+    return [amorphous_cell(seed=100 + i, num_atoms=int(n),
+                           spectrum_size=cfg.spectrum_size)
+            for i, n in enumerate(sizes)]
+
+
+def variant_forward(name: str, cfg, params, device) -> dict:
+    """The model's denoiser on 2 x 192 kNN-32 cells and on 80 x 16 dense
+    graphs. An rbf model on the card (its plain route) against the port on
+    the CPU, float32, at phase 10b's tolerance. A radius model: its K1 / K2
+    call of layer 0 (node width 37, the radius column in h) against the
+    plain statement on the same inputs at the kernel gates, float32 and
+    bf16, as phase 6 holds the large cells; the deeper layers' errors
+    reported beside their m_sum scale (with the flagship's weights on these
+    graphs the deeper layers gate their messages off, m_sum falling to
+    1e-5-1e-2 of the layer before, and a relative gate there reads the
+    rounding of the inputs: the bf16 tile's SiLU errs by ~2.5e-4 |v| where
+    silu(v) is ~0); and one bf16 call of the model through the kernels
+    beside the call through the plain statement (relative L2 of each
+    output, reported: it compounds those deeper layers). Returns the record and the kernels' launches in the model's own calls
+    (the per-layer comparisons excluded)."""
+    import torch
+
+    from diffusion_model_tpu_torch import api
+    from diffusion_model_tpu_torch.data.synthetic import amorphous_cell
+    from diffusion_model_tpu_torch.ops.edges import knn_edges
+
+    cells = [amorphous_cell(seed=s, num_atoms=VARIANT_ATOMS,
+                            spectrum_size=cfg.spectrum_size) for s in (0, 1)]
+    shapes = {"2x192_knn32": (cfg, cell_inputs(cells, device)),
+              "80x16_dense": (cfg.replace(neighbor_k=0, n_max=16), [
+                  a.to(device) for a in seeded_inputs(
+                      cfg.replace(n_max=16), GEN_BATCH * GEN_PER_CONDITION,
+                      0.5)])}
+    rec, launches = {}, {"egcl_pair": 0, "egcl_knn": 0}
+    for shape, (scfg, inputs) in shapes.items():
+        k = scfg.neighbor_k
+        edges = knn_edges(inputs[1], inputs[5], k) if k else None
+        kernel = "egcl_knn" if k else "egcl_pair"
+        row = {}
+        if name == "rbf":
+            f32 = scfg.replace(compute_dtype="float32")
+            card = api.denoiser_from_params(f32, params, device)
+            cpu = api.denoiser_from_params(f32, params, "cpu")
+            reset_counts()
+            got = card(*inputs, edges)
+            counts = read_counts()
+            want = cpu(*(a.cpu() for a in inputs),
+                       None if edges is None else tuple(
+                           e.cpu() for e in edges))
+            scale = max(float(w.abs().max()) for w in want)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g.cpu(), w, rtol=2e-4,
+                                           atol=2e-5 * scale)
+            row = {"card_vs_cpu_max_abs_err_over_scale": max(
+                float((g.cpu() - w).abs().max()) / scale
+                for g, w in zip(got, want)), "counts": counts,
+                "tolerance": "float32 rtol 2e-4 / atol 2e-5 of the scale"}
+            if counts != {"egcl_pair": 0, "egcl_knn": 0,
+                          "plain_edge_calls": cfg.L}:
+                raise AssertionError(f"rbf {shape}: counts {counts}")
+        else:
+            for dt in ("float32", "bfloat16"):
+                args = capture_edge_inputs(scfg.replace(compute_dtype=dt),
+                                           params, device, *inputs, k)
+                layers = []
+                for l, a in enumerate(args):
+                    err = (check_kernel(kernel, a, dt) if l == 0 else
+                           {"gated": False, **ungated_error(kernel, a)})
+                    err["m_sum_scale"] = float(kernel_table()[kernel][1](
+                        *a)[0].abs().max())
+                    layers.append({key: err[key] for key in err if key in (
+                        "max_abs_err", "rel_l2_m_sum", "rel_l2_x_update",
+                        "m_sum_scale", "gated")})
+                row[dt] = layers
+            fast = api.denoiser_from_params(scfg, params, device)
+            plain = api.denoiser_from_params(
+                scfg, params, device, edge_fn=kernel_table()["egcl_pair"][1],
+                knn_edge_fn=kernel_table()["egcl_knn"][1])
+            reset_counts()
+            got = fast(*inputs, edges)
+            counts = read_counts()
+            want = plain(*inputs, edges)
+            # reported: the whole model compounds the deeper layers' input
+            # rounding through the node MLPs (above)
+            row["model_rel_l2"] = {"eps_x": rel_l2(got[0], want[0]),
+                                   "eps_h": rel_l2(got[1], want[1])}
+            row["counts"] = counts
+            if counts != {"egcl_pair": 0, "egcl_knn": 0, kernel: cfg.L,
+                          "plain_edge_calls": 0}:
+                raise AssertionError(f"radius {shape}: counts {counts}")
+            launches[kernel] += counts[kernel]
+        rec[shape] = row
+    if name == "radius":
+        rec["tolerance"] = ("layer 0 at the kernel gates: float32 rtol 2e-4 "
+                            "/ atol 2e-5, bf16 relative L2 1e-2 (m_sum, x "
+                            "update)")
+    return rec, launches
+
+
+def ungated_error(name: str, args) -> dict:
+    """``check_kernel``'s numbers without its gates."""
+    kernel, plain, xi, _ = kernel_table()[name]
+    got_m, got_x = kernel(*args)
+    want_m, want_x = plain(*args)
+    return {"max_abs_err": max(float((got_m - want_m).abs().max()),
+                               float((got_x - want_x).abs().max())),
+            "rel_l2_m_sum": rel_l2(got_m, want_m),
+            "rel_l2_x_update": rel_l2(got_x - args[xi], want_x - args[xi])}
+
+
+def variant_sampling(name: str, cfg, params, device) -> dict:
+    """One 192-atom cell, B=1, ``VARIANT_STEPS`` uniform strided steps: s
+    per structure, atoms x steps / s, finiteness (reported, not required),
+    and the routes: an rbf model's every EGCL through the plain statement,
+    a radius model's through K2."""
+    from diffusion_model_tpu_torch.data.batch import collate
+    from diffusion_model_tpu_torch.data.synthetic import amorphous_cell
+    from diffusion_model_tpu_torch.diffusion.process import (
+        predefined_schedule,
+    )
+
+    cond = collate([amorphous_cell(seed=0, num_atoms=VARIANT_ATOMS,
+                                   spectrum_size=cfg.spectrum_size)],
+                   VARIANT_ATOMS, device)
+    model, calls = counting_model(cfg, params, device)
+    schedule = predefined_schedule(cfg, device=device)
+    time_sample(model, schedule, cfg, cond, 2)
+    reset_counts()
+    calls[0] = 0
+    sec, finite = time_sample(model, schedule, cfg, cond, VARIANT_STEPS)
+    counts = read_counts()
+    want = ({"egcl_pair": 0, "egcl_knn": 0, "plain_edge_calls":
+             cfg.L * calls[0]} if name == "rbf" else
+            {"egcl_pair": 0, "egcl_knn": cfg.L * calls[0],
+             "plain_edge_calls": 0})
+    rec = {"steps": VARIANT_STEPS, "grid": "uniform", "s_per_structure": sec,
+           "atoms_steps_per_s": VARIANT_ATOMS * VARIANT_STEPS / sec,
+           "finite": finite, "denoiser_calls": calls[0], "counts": counts}
+    if calls[0] != VARIANT_STEPS + 1 or counts != want:
+        raise AssertionError(f"{name} sampling: {rec}, want {want}")
+    return rec
+
+
+def variant_training(name: str, cfg, params, device) -> dict:
+    """``VARIANT_TRAIN_STEPS`` train steps of the recipe from ``params`` on
+    ``VARIANT_TRAIN_B`` cells of 160-192 atoms, the batch halved until it
+    fits the card and the cut recorded: each loss finite; ms a step (CUDA
+    events) and the host's time in the call, peak memory; one more step
+    under ``torch.profiler`` for the device's busy time, against the
+    steady steps' ms (the device's idle share); the routes (rbf: the plain
+    statement under autograd; radius: ``EdgeFunction`` over K2)."""
+    import torch
+
+    cfg = cfg.replace(lr=2e-4, max_grad_norm=1.0)
+    batch = VARIANT_TRAIN_B
+    while True:
+        try:
+            rec = variant_steps(name, cfg.replace(batch_size=batch), params,
+                                device)
+            rec["batch"] = batch
+            rec["batch_cut_from"] = (VARIANT_TRAIN_B if batch < VARIANT_TRAIN_B
+                                     else None)
+            return rec
+        except torch.cuda.OutOfMemoryError:
+            if batch == 1:
+                raise
+            torch.cuda.empty_cache()
+            batch //= 2
+
+
+def variant_steps(name: str, cfg, params, device) -> dict:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffusion_model_tpu_torch.data.batch import collate
+    from diffusion_model_tpu_torch.train.loss import TrainNoise
+    from diffusion_model_tpu_torch.train.trainer import Trainer
+
+    cells = collate(variant_train_cells(cfg, cfg.batch_size), cfg.n_max,
+                    device)
+    trainer = Trainer(cfg, device=device)
+    state = trainer.init_state(cfg.seed, params=params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    steps = []
+    for i in range(VARIANT_TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        state, m = trainer.train_step(
+            state, TrainNoise((cfg.seed, 13, i), device), cells)
+        host = time.perf_counter() - t0
+        stop.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(stop)
+        steps.append({"loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"]), "ms": ms,
+                      "host_enqueue_ms": 1e3 * host})
+    # one more step under the profiler: the device's busy time in a step
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trainer.train_step(state, TrainNoise(
+            (cfg.seed, 13, VARIANT_TRAIN_STEPS), device), cells)
+        torch.cuda.synchronize()
+    busy = 1e-3 * sum(e.time_range.elapsed_us() for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+    steady = sum(x["ms"] for x in steps[1:]) / max(len(steps) - 1, 1)
+    counts = read_counts()
+    rec = {"steps": steps, "counts": counts,
+           "profiled_step_device_busy_ms": busy,
+           "device_idle_share": max(0.0, 1.0 - busy / steady),
+           "max_memory_allocated_bytes":
+               torch.cuda.max_memory_allocated(device),
+           "optimizer": cfg.optimizer, "lr": cfg.lr,
+           "max_grad_norm": cfg.max_grad_norm}
+    n = (VARIANT_TRAIN_STEPS + 1) * cfg.L
+    want = ({"egcl_pair": 0, "egcl_knn": 0, "plain_edge_calls": n}
+            if name == "rbf" else
+            {"egcl_pair": 0, "egcl_knn": n, "plain_edge_calls": 0})
+    if counts != want or not all(math.isfinite(x["loss"]) for x in steps):
+        raise AssertionError(f"{name} training: {rec}, want {want}")
+    return rec
+
+
+def phase_variants(cfg, params, device, card: str) -> dict:
+    """The radial-basis edge features and the global radius feature on the
+    card at the recorded arm's full width (``VARIANTS``): for each model
+    the forward checks (``variant_forward``), 250-step sampling of one
+    192-atom cell and three train steps at batch 32. Returns the launches
+    of K1 and K2 in the models' own calls."""
+    launches = {"egcl_pair": 0, "egcl_knn": 0}
+    for name in VARIANTS:
+        vcfg = variant_cfg(cfg, name)
+        vparams = variant_params(params, vcfg)
+        forward, used = variant_forward(name, vcfg, vparams, device)
+        sampling = variant_sampling(name, vcfg, vparams, device)
+        training = variant_training(name, vcfg, vparams, device)
+        for rec in (sampling, training):
+            for kernel in launches:
+                launches[kernel] += rec["counts"][kernel]
+        for kernel in launches:
+            launches[kernel] += used[kernel]
+        log({"phase": f"variants_{name}", "card": card,
+             "config": {**VARIANTS[name], "neighbor_k": vcfg.neighbor_k,
+                        "virtual_node": True, "h_residual": True,
+                        "h_size": vcfg.h_size, "L": vcfg.L,
+                        "compute_dtype": vcfg.compute_dtype},
+             "weights": "flagship EGCL + seeded non-zero variant arrays "
+                        "(speed and routes only)",
+             "forward": forward, "sampling": sampling, "training": training})
+    return launches
+
+
 def phase_strided_scores(device, card: str) -> int:
     """Both snapshots, bf16, dense K1, 27 x 5 at 250 uniform strided steps,
     at the seeds of the JAX package's 250-step run
@@ -2401,6 +2749,7 @@ def main() -> int:
                          device, card)
     strided = kernels_only("strided_scores", phase_strided_scores, device,
                            card)
+    variants = phase_variants(cfg, params, device, card)
     log({"phase": "flagship_routes", "plain_edge_calls": plain_calls,
          "egcl_pair_launches_served": pair_launches,
          "egcl_knn_launches_served": knn_launches,
@@ -2421,6 +2770,7 @@ def main() -> int:
          "resume_launches": resume["launches"]["egcl_pair"],
          "heads_launches": heads["egcl_pair"],
          "strided_launches": strided,
+         "variants_launches": variants["egcl_pair"],
          "train_grad": grads["egcl_pair_64x16_bfloat16"]},
         {"name": "egcl_knn", "route": "cuda",
          "source": "diffusion_model_tpu_torch/csrc/egcl_knn.cu",
@@ -2428,6 +2778,7 @@ def main() -> int:
          "launches": knn_launches, **knn,
          "train_launches": knn_train["launches"]["egcl_knn"],
          "heads_launches": heads["egcl_knn"],
+         "variants_launches": variants["egcl_knn"],
          "train_grad": grads["egcl_knn_64x16_k15_bfloat16"]},
         *probes,
     ]})

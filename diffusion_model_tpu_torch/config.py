@@ -6,9 +6,10 @@ a field here, so a config round-trips. What the port does with each:
 
 - it honours the fields conditional generation and training read (dense
   topology, or kNN lists with the virtual node and the residual node
-  update; the predefined or the learned noise schedule; the optimizers,
-  the loss's levers, the initialisers, ``checkpoint_every`` and
-  ``debug_nans``);
+  update; the radial-basis edge features ``edge_rbf`` / ``edge_rbf_rmax``
+  and the global radius feature; the predefined or the learned noise
+  schedule; the optimizers, the loss's levers, the initialisers,
+  ``checkpoint_every`` and ``debug_nans``);
 - ``Config`` raises ``NotImplementedError``, naming the field, for a value
   of ``_SUPPORTED`` whose code path the port does not have yet;
 - the fields of ``JAX_ONLY`` no code of the port reads: the table says for
@@ -30,8 +31,6 @@ import torch
 
 # (field, value the port supports): any other value raises.
 _SUPPORTED = (
-    ("edge_rbf", 0),
-    ("global_radius_feature", False),
     ("compat_scalar_norm", False),
     ("ring_sample", False),
     ("spectrum_to_latent", False),
@@ -51,8 +50,6 @@ JAX_ONLY = {
                            "train.Trainer refuses (kabsch_loss)"),
     "latent_dim": ("inert", "read only with spectrum_to_latent, which "
                    "_SUPPORTED refuses"),
-    "edge_rbf_rmax": ("inert", "read only with edge_rbf > 0, which "
-                      "_SUPPORTED refuses"),
     "mesh_axis_names": ("inert", "read only with a mesh_shape, which "
                         "train.Trainer refuses; generation runs on one "
                         "device"),
@@ -146,11 +143,16 @@ class Config:
     # large-cell variants: the virtual-node channel and h + mlp_h(...)
     virtual_node: bool = False
     h_residual: bool = False
-
-    # variants the port rejects (see _SUPPORTED)
+    # edge_rbf Gaussians of the edge distance (centres linspace(0,
+    # edge_rbf_rmax, edge_rbf)) added to both edge-MLP pre-activations;
+    # 0 is off, 1 refused (the width rmax / (K - 1) is undefined)
     edge_rbf: int = 0
     edge_rbf_rmax: float = 8.0
+    # log1p of each node's distance to the masked CoM, gated, as one more
+    # node feature after exO
     global_radius_feature: bool = False
+
+    # variants the port rejects (see _SUPPORTED)
     compat_scalar_norm: bool = False
     ring_sample: bool = False
     spectrum_to_latent: bool = False
@@ -162,6 +164,13 @@ class Config:
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r} is not ported yet "
                     f"(the port runs {name}={supported!r})")
+        if self.edge_rbf == 1 or self.edge_rbf < 0:
+            raise ValueError(
+                f"edge_rbf={self.edge_rbf}: need >= 2 Gaussian centres "
+                "(width = rmax / (num - 1)); use 0 to disable")
+        if self.edge_rbf and not self.edge_rbf_rmax > 0:
+            raise ValueError(
+                f"edge_rbf_rmax={self.edge_rbf_rmax} must be > 0")
         if self.x_parameterization not in ("eps", "x0", "v"):
             raise ValueError(
                 f"x_parameterization={self.x_parameterization!r} "
@@ -191,10 +200,12 @@ class Config:
 
     @property
     def h_size(self) -> int:
-        """Node feature width ``[species | spectrum | exO | t]``."""
+        """Node feature width ``[species | spectrum | exO | radius | t]``."""
         size = self.atom_type_size + self.cond_spectrum_size + self.t_size
         if self.give_exO:
             size += self.exO_size
+        if self.global_radius_feature:
+            size += 1
         return size
 
     @property

@@ -21,6 +21,13 @@ widths lie outside the kernels' limits (``edge_route``), the edge work runs
 as the plain statement on any device, in chunks of targets
 (``plain_edges``), and ``plain_edge_calls`` counts it.
 
+With ``edge_rbf`` = K > 0, K Gaussians of the edge length
+(``ops.edges.rbf_features``, re-exported here) enter both edge MLPs'
+pre-activations through the bias-free, zero-initialised ``rbf_m [K,
+m_hidden]`` and ``rbf_x [K, x_hidden]``. Neither kernel computes that term
+(the JAX package's Pallas kernels compute none either), so such a layer
+always takes the plain route, whatever its widths.
+
 Two large-cell options compose outside the edge function, on both routes:
 ``virtual_node`` adds an O(N) global-context channel (a virtual node at the
 masked centre of mass, computed from the layer's input h and x) to the
@@ -50,6 +57,7 @@ from diffusion_model_tpu_torch.ops.edge_grad import (
     PLAIN_EDGE_ELEMENTS,
     edge_chunks,
 )
+from diffusion_model_tpu_torch.ops.edges import rbf_features  # noqa: F401
 from diffusion_model_tpu_torch.ops.egcl_knn import egcl_knn_edges
 from diffusion_model_tpu_torch.ops.egcl_pair import egcl_pair_edges
 
@@ -58,20 +66,22 @@ plain_edge_calls = 0
 
 
 def edge_route(m_hidden: int, x_hidden: int, m_out: int, dtype: torch.dtype,
-               hdim: int | None = None) -> str:
-    """The route of an EGCL's edge work, from its widths and compute dtype
-    alone, before any call: ``"kernel"`` (the layer's edge function: the
-    CUDA kernel on the card) or ``"plain"`` (``plain_edges``). ``"plain"``
-    exactly where a shape limit of the kernels fails: the first-layer widths
+               hdim: int | None = None, edge_rbf: int = 0) -> str:
+    """The route of an EGCL's edge work, from its config alone, before any
+    call: ``"kernel"`` (the layer's edge function: the CUDA kernel on the
+    card) or ``"plain"`` (``plain_edges``). ``"plain"`` exactly where the
+    layer has a radial-basis term (``edge_rbf`` > 0: no kernel computes
+    one) or a shape limit of the kernels fails: the first-layer widths
     differ or are not multiples of 64, ``m_out`` is not a multiple of 64 or
     exceeds 256, a bfloat16 first layer is wider than ``MAX_F1``, or (kNN,
     ``hdim`` given) the node width exceeds ``MAX_H``. What the kernel refuses
     for any other reason (dtype, device, layout, grad) it still refuses. The
-    JAX package routes by config the same way (``api.sampling_uses_pallas``);
-    its XLA path takes any width. On the CPU both routes are the plain
-    statement; only ``"plain"`` cuts it into chunks and counts the call."""
-    fits = (m_hidden == x_hidden and m_hidden % 64 == 0 and m_out % 64 == 0
-            and m_out <= 256
+    JAX package routes by config the same way (``api.sampling_uses_pallas``
+    keeps ``edge_rbf`` on XLA); its XLA path takes any width. On the CPU
+    both routes are the plain statement; only ``"plain"`` cuts it into
+    chunks and counts the call."""
+    fits = (edge_rbf == 0 and m_hidden == x_hidden and m_hidden % 64 == 0
+            and m_out % 64 == 0 and m_out <= 256
             and not (dtype == torch.bfloat16 and m_hidden > egcl_pair.MAX_F1)
             and (hdim is None or 1 <= hdim <= egcl_knn.MAX_H))
     return "kernel" if fits else "plain"
@@ -83,8 +93,9 @@ def plain_edges(reference: Callable, args: tuple, sources: int, width: int,
     ``egcl_knn_edges_reference``) over ``args``, in chunks of whole graphs,
     or of one graph's targets where a graph is too large (``ops.edge_grad.
     edge_chunks``), so that no ``[graphs, targets, sources, width]``
-    intermediate exceeds ``budget`` elements. The first six arguments of
-    both are per graph. Returns (m_sum [B,N,Fm], x_out [B,N,3]) float32, as
+    intermediate exceeds ``budget`` elements. The first ``GRAPH_ARGS`` of
+    both are per graph; the rest (weights, an ``rbf`` term) pass whole.
+    Returns (m_sum [B,N,Fm], x_out [B,N,3]) float32, as
     the reference does; written chunk by chunk into fresh tensors, which
     autograd follows."""
     global plain_edge_calls
@@ -193,6 +204,17 @@ class _KernelDense(nn.Module):
         return v @ k + b
 
 
+class _RbfKernel(nn.Module):
+    """Bias-free ``kernel [K, F]`` of a radial-basis term, zero at init."""
+
+    def __init__(self, num: int, features: int, device=None):
+        super().__init__()
+        self.kernel = _kernel_param(num, features, device, zero=True)
+
+    def cast(self, dt: torch.dtype) -> torch.Tensor:
+        return self.kernel.to(dt)
+
+
 class _VectorHead(_KernelDense):
     """Dense to one output (``kernel [F, 1]``, ``bias [1]``). The edge
     functions apply it as a multiply-reduce in their epilogue; ``forward``
@@ -221,7 +243,8 @@ class EGCL(nn.Module):
     served step's launches. Parameters are drawn as flax draws them:
     ``lecun_normal`` kernels, zero biases, the coordinate MLP's last layer
     zero with ``zero_init_x``, the node MLP's output kernel at variance
-    ``h_init_scale / fan_in``, the virtual node's two output heads zero."""
+    ``h_init_scale / fan_in``, the virtual node's two output heads and the
+    radial-basis kernels zero."""
 
     def __init__(self, hdim: int, m_hidden: int, m_out: int, x_hidden: int,
                  h_hidden: int, h_out: int,
@@ -230,9 +253,16 @@ class EGCL(nn.Module):
                  knn_edge_fn: Callable = egcl_knn_edges,
                  h_residual: bool = False, virtual_node: bool = False,
                  zero_init_x: bool = True, h_init_scale: float = 1.0,
+                 edge_rbf: int = 0, edge_rbf_rmax: float = 8.0,
                  device=None):
         super().__init__()
+        if edge_rbf and (edge_rbf < 2 or not edge_rbf_rmax > 0):
+            raise ValueError(
+                f"edge_rbf={edge_rbf} needs >= 2 Gaussian centres and "
+                f"edge_rbf_rmax={edge_rbf_rmax} > 0 (width = rmax / "
+                "(num - 1)); use edge_rbf=0 to disable")
         self.compute_dtype = compute_dtype
+        self.edge_rbf, self.edge_rbf_rmax = edge_rbf, float(edge_rbf_rmax)
         self.edge_fn = edge_fn
         self.knn_edge_fn = knn_edge_fn
         self.h_residual = h_residual
@@ -252,6 +282,9 @@ class EGCL(nn.Module):
                                                zero=True)
             self.vnode_x = _GlobalFirstLayer(x_hidden, hdim, m_out, device)
             self.vnode_x_head = _VectorHead(x_hidden, device, zero=True)
+        if edge_rbf:
+            self.rbf_m = _RbfKernel(edge_rbf, m_hidden, device)
+            self.rbf_x = _RbfKernel(edge_rbf, x_hidden, device)
         self._cast_key = None
         self._cast = None
         self.register_load_state_dict_post_hook(_drop_cast)
@@ -297,6 +330,9 @@ class EGCL(nn.Module):
             w.update({name: getattr(self, name).cast(dt) for name in (
                 "vnode_in", "vnode_pool", "vnode_out", "vnode_x",
                 "vnode_x_head")})
+        if self.edge_rbf:
+            w["rbf"] = (self.rbf_m.cast(dt), self.rbf_x.cast(dt),
+                        self.edge_rbf_rmax)
         return w
 
     def forward(self, h: torch.Tensor, x: torch.Tensor,
@@ -317,7 +353,8 @@ class EGCL(nn.Module):
         if edges is None:
             args = (am_i, h_c @ mj_k, ax_i, h_c @ xj_k, x_f,
                     node_mask.to(f32).unsqueeze(-1), m_d2, x_d2, *w["heads"])
-            route = edge_route(m_hidden, x_hidden, m_out, dt)
+            route = edge_route(m_hidden, x_hidden, m_out, dt,
+                               edge_rbf=self.edge_rbf)
             reference, edge_fn, sources = (
                 egcl_pair.egcl_pair_edges_reference, self.edge_fn,
                 h.shape[1])
@@ -325,10 +362,13 @@ class EGCL(nn.Module):
             idx, edge_mask = edges
             args = (am_i, ax_i, h_c, x_f, idx, edge_mask, mj_k, xj_k, m_d2,
                     x_d2, *w["heads"])
-            route = edge_route(m_hidden, x_hidden, m_out, dt, h.shape[-1])
+            route = edge_route(m_hidden, x_hidden, m_out, dt, h.shape[-1],
+                               self.edge_rbf)
             reference, edge_fn, sources = (
                 egcl_knn.egcl_knn_edges_reference, self.knn_edge_fn,
                 idx.shape[-1])
+        if self.edge_rbf:
+            args = args + (w["rbf"],)
         if route == "plain":
             m_sum, x_new = plain_edges(reference, args, sources,
                                        max(m_hidden, x_hidden, m_out))
@@ -379,6 +419,7 @@ class EquivariantGNN(nn.Module):
                  knn_edge_fn: Callable = egcl_knn_edges,
                  h_residual: bool = False, virtual_node: bool = False,
                  zero_init_x: bool = True, h_init_scale: float = 1.0,
+                 edge_rbf: int = 0, edge_rbf_rmax: float = 8.0,
                  device=None):
         super().__init__()
         self.L = L
@@ -388,7 +429,8 @@ class EquivariantGNN(nn.Module):
                 compute_dtype=compute_dtype, edge_fn=edge_fn,
                 knn_edge_fn=knn_edge_fn, h_residual=h_residual,
                 virtual_node=virtual_node, zero_init_x=zero_init_x,
-                h_init_scale=h_init_scale, device=device))
+                h_init_scale=h_init_scale, edge_rbf=edge_rbf,
+                edge_rbf_rmax=edge_rbf_rmax, device=device))
 
     def forward(self, h: torch.Tensor, x: torch.Tensor,
                 node_mask: torch.Tensor, edges=None):

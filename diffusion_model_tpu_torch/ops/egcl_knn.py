@@ -12,6 +12,10 @@ j = idx[b, i, k] and edge weight em = edge_mask[b, i, k]::
     s       = silu(silu(pre_x) @ W2x + b2x) @ wx3 + bx3
     x_out_i = x_i + sum_k (x_i - x_j) * s / (|x_i - x_j| + 1) * em
 
+The plain statement also takes an edge model's radial-basis term (``rbf``,
+under the edge mask, as ``ops.egcl_pair``'s); the kernel computes none, and
+``egcl_knn_edges`` refuses it.
+
 The kernel (``csrc/egcl_knn.cu``) shares the dense kernel's edge tile and
 epilogue (``csrc/egcl_edge_tile.cuh``). In bf16 a block owns a run of
 consecutive targets and computes their live slots only (``edge_tiles``
@@ -45,6 +49,7 @@ import torch.nn.functional as F
 
 from diffusion_model_tpu_torch.ops import _tiles
 from diffusion_model_tpu_torch.ops.edge_grad import EdgeFunction, wants_grad
+from diffusion_model_tpu_torch.ops.egcl_pair import add_rbf, refuse_rbf
 
 # Launches of the CUDA kernel in this process; only egcl_knn_edges adds to
 # it, right after a launch was accepted.
@@ -66,11 +71,12 @@ def gather_nodes(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def egcl_knn_edges_reference(am_i, ax_i, h, x, idx, edge_mask, wm_j, wx_j,
                              w_dm, w_dx, w2m, b2m, wa, ba, w2x, b2x, wx3,
-                             bx3, targets: slice = slice(None)):
+                             bx3, rbf=None, targets: slice = slice(None)):
     """Plain float32 statement of the kernel's math (materialises the
     ``[B, T, K, F]`` edge tensors), as ``_edge_math_sparse`` states it, for
-    the targets ``i`` in ``targets`` (all by default). Returns
-    (m_sum [B,T,Fm], x_out [B,T,3])."""
+    the targets ``i`` in ``targets`` (all by default), with the radial-basis
+    term where ``rbf = (W_rbf_m, W_rbf_x, rmax)`` is given
+    (``ops.egcl_pair.add_rbf``). Returns (m_sum [B,T,Fm], x_out [B,T,3])."""
     f32 = torch.float32
     am_i, ax_i, h, x = (v.to(f32) for v in (am_i, ax_i, h, x))
     idx = idx[:, targets]
@@ -82,11 +88,13 @@ def egcl_knn_edges_reference(am_i, ax_i, h, x, idx, edge_mask, wm_j, wx_j,
     em = edge_mask[:, targets, :, None].to(f32)
 
     pre_m = am_i[:, targets, None, :] + h_j @ wm_j.to(f32) + d2 * w_dm.to(f32)
+    pre_x = ax_i[:, targets, None, :] + h_j @ wx_j.to(f32) + d2 * w_dx.to(f32)
+    if rbf is not None:
+        pre_m, pre_x = add_rbf(pre_m, pre_x, d2, em > 0, *rbf)
     m = F.silu(F.silu(pre_m) @ w2m.to(f32) + b2m.to(f32))
     att = torch.sigmoid(m @ wa.to(f32) + ba.to(f32))
     m_sum = (m * att * em).sum(dim=2)                        # [B,T,Fm]
 
-    pre_x = ax_i[:, targets, None, :] + h_j @ wx_j.to(f32) + d2 * w_dx.to(f32)
     u = F.silu(F.silu(pre_x) @ w2x.to(f32) + b2x.to(f32))
     s = u @ wx3.to(f32) + bx3.to(f32)                        # [B,T,K,1]
     norm = torch.sqrt(torch.where(em > 0, d2.clamp_min(1e-12),
@@ -187,7 +195,7 @@ def build() -> None:
 
 
 def egcl_knn_edges(am_i, ax_i, h, x, idx, edge_mask, wm_j, wx_j, w_dm, w_dx,
-                   w2m, b2m, wa, ba, w2x, b2x, wx3, bx3):
+                   w2m, b2m, wa, ba, w2x, b2x, wx3, bx3, rbf=None):
     """Fused kNN EGCL edge work (see module docstring).
 
     Args:
@@ -201,12 +209,15 @@ def egcl_knn_edges(am_i, ax_i, h, x, idx, edge_mask, wm_j, wx_j, w_dm, w_dx,
         w_dm, w_dx ``[1, F1]``; w2m ``[F1, Fm]``; w2x ``[F1, F1]``; all in
         the compute dtype. b2m ``[1, Fm]``, wa ``[Fm, 1]``, ba ``[1, 1]``,
         b2x ``[1, F1]``, wx3 ``[F1, 1]``, bx3 ``[1, 1]`` float32.
+      rbf: None. The kernel computes no radial-basis term, on any device,
+        and raises ``ValueError`` rather than drop one.
 
     Returns:
       (m_sum ``[B, N, Fm]`` float32, x_out ``[B, N, 3]`` float32),
       differentiable in every input but ``idx`` and ``edge_mask`` where
       autograd records.
     """
+    refuse_rbf(rbf, "kNN (K2)")
     args = (am_i, ax_i, h, x, idx, edge_mask, wm_j, wx_j, w_dm, w_dx, w2m,
             b2m, wa, ba, w2x, b2x, wx3, bx3)
     device = am_i.device

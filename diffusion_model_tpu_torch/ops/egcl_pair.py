@@ -12,6 +12,11 @@ with i != j (pair mask pm)::
     s       = silu(silu(pre_x) @ W2x + b2x) @ wx3 + bx3
     x_out_i = x_i + sum_j (x_i - x_j) * s / (|x_i - x_j| + 1) * pm
 
+The plain statement also takes an edge model's radial-basis term (``rbf``:
+``rbf(|x_i - x_j|) @ W_rbf_m`` added to pre_m and ``@ W_rbf_x`` to pre_x,
+``ops.edges.rbf_features`` under the pair mask); the kernel computes none,
+as the Pallas kernel computes none, and ``egcl_pair_edges`` refuses it.
+
 The kernel (``csrc/egcl_pair.cu``) is bound by tensor-core FLOPs: 2.62
 MFLOP per live pair at F1=1024, Fm=256, against at most 8 KB of node input
 per edge (four bf16 projection rows), above the card's FLOP-per-byte ridge
@@ -45,6 +50,7 @@ import torch.nn.functional as F
 
 from diffusion_model_tpu_torch.ops import _tiles
 from diffusion_model_tpu_torch.ops.edge_grad import EdgeFunction, wants_grad
+from diffusion_model_tpu_torch.ops.edges import rbf_features
 
 # Launches of the CUDA kernel in this process; only egcl_pair_edges adds to
 # it, right after a launch was accepted.
@@ -58,11 +64,14 @@ MAX_F1 = 1024   # first-layer width of the bf16 kernel (csrc kMaxF1)
 
 
 def egcl_pair_edges_reference(am_i, am_j, ax_i, ax_j, x, mask, w_dm, w_dx,
-                              w2m, b2m, wa, ba, w2x, b2x, wx3, bx3,
+                              w2m, b2m, wa, ba, w2x, b2x, wx3, bx3, rbf=None,
                               targets: slice = slice(None)):
     """Plain float32 statement of the kernel's math (materialises the
     ``[B, T, N, F]`` edge tensors) for the targets ``i`` in ``targets`` (all
-    by default). Returns (m_sum [B,T,Fm], x_out [B,T,3])."""
+    by default), with the radial-basis term where ``rbf`` is given as
+    ``(W_rbf_m [K, F1], W_rbf_x [K, F1], rmax)`` (kernels in the compute
+    dtype, the features cast to it). Returns (m_sum [B,T,Fm],
+    x_out [B,T,3])."""
     f32 = torch.float32
     am_i, am_j, ax_i, ax_j, x = (v.to(f32) for v in (am_i, am_j, ax_i, ax_j, x))
     n = am_i.shape[1]
@@ -75,17 +84,38 @@ def egcl_pair_edges_reference(am_i, am_j, ax_i, ax_j, x, mask, w_dm, w_dx,
           * (1.0 - eye)[None, :, :, None])
 
     pre_m = am_i[:, targets, None, :] + am_j[:, None, :, :] + d2 * w_dm.to(f32)
+    pre_x = ax_i[:, targets, None, :] + ax_j[:, None, :, :] + d2 * w_dx.to(f32)
+    if rbf is not None:
+        pre_m, pre_x = add_rbf(pre_m, pre_x, d2, pm > 0, *rbf)
     m = F.silu(F.silu(pre_m) @ w2m.to(f32) + b2m.to(f32))
     att = torch.sigmoid(m @ wa.to(f32) + ba.to(f32))
     m_sum = (m * att * pm).sum(dim=2)                        # [B,T,Fm]
 
-    pre_x = ax_i[:, targets, None, :] + ax_j[:, None, :, :] + d2 * w_dx.to(f32)
     u = F.silu(F.silu(pre_x) @ w2x.to(f32) + b2x.to(f32))
     s = u @ wx3.to(f32) + bx3.to(f32)                        # [B,T,N,1]
     norm = torch.sqrt(torch.where(pm > 0, d2.clamp_min(1e-12),
                                   torch.ones_like(d2)))
     upd = diff * s / (norm + 1.0) * pm
     return m_sum, x_i + upd.sum(dim=2)
+
+
+def add_rbf(pre_m, pre_x, d2, valid, w_rbf_m, w_rbf_x, rmax):
+    """``pre_m + rbf @ W_rbf_m`` and ``pre_x + rbf @ W_rbf_x`` in float32,
+    with ``rbf = rbf_features(d2, valid)`` rounded to the kernels' (compute)
+    dtype first, as the JAX package rounds it."""
+    f32 = torch.float32
+    rbf = rbf_features(d2, valid, w_rbf_m.shape[0], rmax).to(
+        w_rbf_m.dtype).to(f32)
+    return pre_m + rbf @ w_rbf_m.to(f32), pre_x + rbf @ w_rbf_x.to(f32)
+
+
+def refuse_rbf(rbf, kernel: str) -> None:
+    """Raise where an RBF term reaches a kernel, which computes none."""
+    if rbf is not None:
+        raise ValueError(
+            f"the {kernel} kernel computes no radial-basis (edge_rbf) term; "
+            "an edge_rbf model's edge work runs the plain statement "
+            "(nn.egnn.edge_route)")
 
 
 def edge_tiles(mask) -> _tiles.EdgeTiles:
@@ -172,7 +202,7 @@ def build() -> None:
 
 
 def egcl_pair_edges(am_i, am_j, ax_i, ax_j, x, mask, w_dm, w_dx, w2m, b2m,
-                    wa, ba, w2x, b2x, wx3, bx3):
+                    wa, ba, w2x, b2x, wx3, bx3, rbf=None):
     """Fused EGCL edge work (see module docstring).
 
     Args:
@@ -183,11 +213,14 @@ def egcl_pair_edges(am_i, am_j, ax_i, ax_j, x, mask, w_dm, w_dx, w2m, b2m,
         ``[F1, F1]`` compute dtype; b2m ``[1, Fm]``, wa ``[Fm, 1]``,
         ba ``[1, 1]``, b2x ``[1, F1]``, wx3 ``[F1, 1]``, bx3 ``[1, 1]``
         float32.
+      rbf: None. The kernel computes no radial-basis term, on any device,
+        and raises ``ValueError`` rather than drop one.
 
     Returns:
       (m_sum ``[B, N, Fm]`` float32, x_out ``[B, N, 3]`` float32),
       differentiable in every input but ``mask`` where autograd records.
     """
+    refuse_rbf(rbf, "pair (K1)")
     args = (am_i, am_j, ax_i, ax_j, x, mask, w_dm, w_dx, w2m, b2m, wa, ba,
             w2x, b2x, wx3, bx3)
     device = am_i.device

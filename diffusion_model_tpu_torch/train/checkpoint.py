@@ -269,7 +269,9 @@ def state_dict_from_flax(tree: dict) -> dict:
     top-level ``denoiser`` key). Names carry over with ``/`` read as ``.``;
     ``kernel`` becomes ``weight`` (transposed) on the ``nn.Linear`` modules
     of the spectrum compressor and the node MLP; the virtual-node channel's
-    kernels stay ``[in, out]``. The values are float32
+    kernels stay ``[in, out]``, and so do the radial-basis kernels
+    (``rbf_m``, ``rbf_x``); a top-level leaf (``radius_feature_gate``)
+    keeps its name. The values are float32
     tensors; the denoiser casts to ``cfg.compute_dtype`` where it computes.
     ``DiffusionDenoiser.load_state_dict`` (strict) rejects a tree whose
     names or shapes do not fit the config.
@@ -278,7 +280,7 @@ def state_dict_from_flax(tree: dict) -> dict:
     out = {}
     for key, value in _flatten(params).items():
         t = torch.from_numpy(np.array(value, np.float32))
-        if _is_linear(key.rsplit("/", 1)[0]) and key.endswith("/kernel"):
+        if key.endswith("/kernel") and _is_linear(key.rsplit("/", 1)[0]):
             t = t.T
         out[port_name(key)] = t.contiguous()
     return out
@@ -288,7 +290,10 @@ def port_name(path: str) -> str:
     """The ``DiffusionDenoiser`` state-dict name of a flax parameter path
     under ``params`` (``egnn/egcl_0/mlp_h_dense0/kernel`` ->
     ``egnn.egcl_0.mlp_h_dense0.weight``; the value is transposed where the
-    leaf is an ``nn.Linear`` kernel)."""
+    leaf is an ``nn.Linear`` kernel; a top-level leaf such as
+    ``radius_feature_gate`` keeps its name)."""
+    if "/" not in path:
+        return path
     module_path, leaf = path.rsplit("/", 1)
     if _is_linear(module_path) and leaf == "kernel":
         leaf = "weight"
@@ -314,12 +319,13 @@ def flax_from_state_dict(state_dict: dict) -> dict:
     ``state_dict_from_flax``, as float32 numpy arrays."""
     tree: dict = {}
     for key, value in state_dict.items():
-        module_path, leaf = key.rsplit(".", 1)
+        *modules, leaf = key.split(".")
         v = value.detach().to("cpu", torch.float32).numpy()
-        if _is_linear(module_path.replace(".", "/")) and leaf == "weight":
+        if (modules and leaf == "weight"
+                and _is_linear("/".join(modules))):
             leaf, v = "kernel", v.T
         node = tree
-        for p in module_path.split("."):
+        for p in modules:
             node = node.setdefault(p, {})
         node[leaf] = np.ascontiguousarray(v)
     return {"params": tree}

@@ -80,7 +80,8 @@ def test_config_matches_jax_field_for_field():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("neighbor_k", 32), ("virtual_node", True), ("h_residual", True)])
+    ("neighbor_k", 32), ("virtual_node", True), ("h_residual", True),
+    ("edge_rbf", 8), ("global_radius_feature", True)])
 def test_large_cell_settings_carry_over(field, value):
     d = {field: value}
     assert getattr(jax_from_dict(d), field) == value
@@ -88,7 +89,6 @@ def test_large_cell_settings_carry_over(field, value):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("edge_rbf", 8), ("global_radius_feature", True),
     ("compat_scalar_norm", True), ("ring_sample", True),
     ("spectrum_to_latent", True),
 ])
@@ -210,7 +210,7 @@ def test_every_jax_field_is_a_port_field_or_in_the_table():
     # what the port does with them and why
     assert set(port_config.JAX_ONLY) == {
         "x_size", "d_size", "kabsch_loss_steps", "kabsch_loss_weight",
-        "latent_dim", "use_pallas", "edge_rbf_rmax", "mesh_axis_names"}
+        "latent_dim", "use_pallas", "mesh_axis_names"}
     for name, (how, why) in port_config.JAX_ONLY.items():
         assert how in ("refused", "inert") and why, name
     assert not set(HONOURED_SINCE_F6) & set(port_config.JAX_ONLY)

@@ -156,6 +156,26 @@ def test_knn_kernel_matches_plain(cuda_device, dtype, b, n, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hdim", [1, 17, 33, 37, 47, 48])
+def test_knn_kernel_takes_every_node_width(cuda_device, dtype, hdim):
+    """K2 at node widths other than the flagship's 36, odd ones included
+    (37: the radius feature's), up to ``MAX_H``: the rows of h and of W_j
+    are read past the width's last multiple of 8 or 16."""
+    inputs = knn_inputs(11, b=2, n=192, k=32, hdim=hdim, f1=1024, fm=256,
+                        n_real=(192, 180))
+    args = knn_args(inputs, cuda_device, dtype)
+    got_m, got_x = egcl_knn.egcl_knn_edges(*args)
+    want_m, want_x = egcl_knn.egcl_knn_edges_reference(*args)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got_m, want_m, rtol=2e-4, atol=2e-5)
+        torch.testing.assert_close(got_x, want_x, rtol=2e-4, atol=2e-5)
+    else:
+        assert _rel_l2(got_m, want_m) <= 1e-2
+        assert _rel_l2(got_x - args[3], want_x - args[3]) <= 1e-2
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,n,k,f1,fm", [(80, 16, 15, 1024, 256),
                                          (2, 90, 70, 320, 64),
                                          (3, 40, 33, 256, 192)])
@@ -582,3 +602,87 @@ def test_gamma_table_on_the_card_matches_the_cpu(cuda_device):
     got = api.schedule_for(cfg, params, cuda_device).alphas
     assert got.device.type == "cuda" and got.dtype == torch.float32
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=5e-6)
+
+
+# -- the large-cell levers: edge_rbf takes the plain route, the radius
+# feature the kernels --------------------------------------------------------
+
+def _variant_model(device, **kw):
+    from diffusion_model_tpu_torch.config import Config
+    from diffusion_model_tpu_torch.nn.denoiser import DiffusionDenoiser
+
+    cfg = Config(L=2, m_hidden_size=128, x_hidden_size=128, m_size=64,
+                 h_hidden_size=64, n_max=24, neighbor_k=8, virtual_node=True,
+                 h_residual=True, zero_init_x=False, **kw)
+    torch.manual_seed(0)
+    cpu = DiffusionDenoiser(cfg)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if "rbf_" in name or name == "radius_feature_gate":
+                p.normal_(0.0, 0.5)          # zero, the feature is a no-op
+    card = DiffusionDenoiser(cfg, device=device)
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    b, n = 3, cfg.n_max
+    mask = np.ones((b, n), np.float32)
+    mask[1, 17:] = 0.0
+    m3 = mask[..., None]
+    arrays = [rng.normal(size=(b, n, 2)) * m3,
+              rng.normal(size=(b, n, 3)) * 2.5 * m3,
+              rng.random((b, n, cfg.spectrum_size)), np.zeros((b, n, 1)),
+              0.4 * m3, mask]
+    inputs = [torch.from_numpy(np.asarray(a, np.float32)) for a in arrays]
+    return cfg, cpu, card, inputs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [0, 8])
+def test_rbf_model_runs_the_plain_route_on_the_card(cuda_device, k):
+    cfg, cpu, card, inputs = _variant_model(cuda_device, edge_rbf=8,
+                                            edge_rbf_rmax=8.0)
+    edges = lambda t: knn_edges(t[1], t[5], k) if k else None  # noqa: E731
+    launches = (egcl_pair.egcl_pair_launches, egcl_knn.egcl_knn_launches)
+    before = egnn.plain_edge_calls
+    card_in = [a.to(cuda_device) for a in inputs]
+    got = card(*card_in, edges(card_in))
+    torch.cuda.synchronize()
+    assert egnn.plain_edge_calls == before + cfg.L
+    assert (egcl_pair.egcl_pair_launches,
+            egcl_knn.egcl_knn_launches) == launches
+    want = cpu(*inputs, edges(inputs))
+    scale = max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=2e-4, atol=2e-5 * scale)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_refuse_an_rbf_term_on_the_card(cuda_device):
+    w = torch.zeros(6, 64, device=cuda_device)
+    for fn, args in (
+            (egcl_pair.egcl_pair_edges,
+             edge_args(edge_inputs(1, f1=64, fm=64), cuda_device)),
+            (egcl_knn.egcl_knn_edges,
+             knn_args(knn_inputs(1, f1=64, fm=64), cuda_device))):
+        with pytest.raises(ValueError, match="radial-basis"):
+            fn(*args, rbf=(w, w, 8.0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [0, 8])
+def test_radius_model_runs_the_kernels_on_the_card(cuda_device, k):
+    cfg, cpu, card, inputs = _variant_model(cuda_device,
+                                            global_radius_feature=True)
+    assert cfg.h_size <= egcl_knn.MAX_H
+    edges = lambda t: knn_edges(t[1], t[5], k) if k else None  # noqa: E731
+    counter = (egcl_knn, "egcl_knn_launches") if k else (
+        egcl_pair, "egcl_pair_launches")
+    before = (getattr(*counter), egnn.plain_edge_calls)
+    card_in = [a.to(cuda_device) for a in inputs]
+    got = card(*card_in, edges(card_in))
+    torch.cuda.synchronize()
+    assert (getattr(*counter), egnn.plain_edge_calls) == (
+        before[0] + cfg.L, before[1])
+    want = cpu(*inputs, edges(inputs))
+    scale = max(float(w.abs().max()) for w in want)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=2e-4, atol=2e-5 * scale)

@@ -32,6 +32,10 @@ RECIPES = {
     "radam_schedule_free": dict(optimizer="RAdamScheduleFree"),
     "adam_ema": dict(optimizer="Adam", ema_decay=0.9),
     "learned": dict(optimizer="RAdamScheduleFree", noise_schedule="learned"),
+    # the large-cell levers' new leaves (rbf_m, rbf_x, radius_feature_gate)
+    "rbf_radius": dict(optimizer="RAdamScheduleFree", neighbor_k=3,
+                       virtual_node=True, h_residual=True, edge_rbf=6,
+                       edge_rbf_rmax=4.0, global_radius_feature=True),
 }
 
 
@@ -76,6 +80,9 @@ def test_resumed_run_equals_the_uninterrupted_run(recipe, data, tmp_path):
     assert_states_equal(resumed, whole)
     if recipe == "learned":
         assert "gamma.gamma_0" in whole.params
+    if recipe == "rbf_radius":
+        assert {"denoiser.radius_feature_gate",
+                "denoiser.egnn.egcl_1.rbf_x.kernel"} <= set(whole.params)
     # the epochs of the two segments are logged once each
     lines = [json.loads(x) for x in open(tmp_path / "cut" / "metrics.jsonl")]
     assert [r["step"] for r in lines if "train_loss" in r] == [0, 1, 2]
