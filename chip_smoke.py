@@ -140,8 +140,21 @@ Phases, each printed as one JSON line:
      K1 / K2 against their plain statements), 250 strided steps of one
      192-atom cell (s per structure; an rbf model's every EGCL through the
      plain statement and none through K1 / K2, a radius model's through
-     K2), and three train steps at batch 32 of 160-192-atom cells (ms,
-     the device's idle share from one more profiled step, peak memory).
+     K2), and three train steps at batch 32 of 160-192-atom network cells
+     (``amorphous_network_cell``, the sweep's data; ms, the device's idle
+     share from one more profiled step, peak memory);
+ 23. network_recipe: the large-cell recipe of
+     ``examples/size_generalization.py`` as ``evals.size_gen_check``
+     builds it (kNN-32, ``h_residual``, ``virtual_node``, ``h_init_scale``
+     1e-3, L=5, 1024 / 256, bf16, lr 2e-4, clip 1) from a fresh init:
+     three train steps at batch 32 of 448-512-atom network cells with
+     ``remat_egcl`` off and on (ms, peak memory, K2 5 and 10 launches a
+     step, the idle share of a profiled step; the first step's gradients
+     equal bit for bit), the ``edge_rbf=8`` arm on the plain route with
+     remat at batch 32 and without at batch 8, one 512-atom cell at 250
+     uniform steps through K2 (1,255 launches), and ``compat_scalar_norm``
+     on the flagship (80 x 16 dense, the card's plain route against the
+     CPU at phase 10b's gate, then one bf16 train step).
 
 Any failed check raises, and the script exits non-zero without its result
 line. The last lines are the kernel table (with each kernel's bound: its
@@ -250,6 +263,10 @@ VARIANT_TRAIN_ATOMS = (160, 192)   # the sweep's train cells
 VARIANT_TRAIN_B = 32
 VARIANT_TRAIN_STEPS = 3
 VARIANT_STEPS = 250
+NETWORK_ATOMS = (448, 512)    # the 512-atom recipe's train cells
+NETWORK_B = 32
+NETWORK_STEPS = 3             # timed train steps of each arm
+RBF_BATCH = {True: 32, False: 8}   # the rbf arm's batch, with / without remat
 
 
 def log(record: dict) -> None:
@@ -2122,16 +2139,20 @@ def variant_params(params: dict, cfg, seed: int = 0) -> dict:
                              seed + 1)
 
 
-def variant_train_cells(cfg, count: int) -> list:
-    """``count`` amorphous cells of 160-192 atoms (sizes from the seed)."""
+def network_cells(cfg, count: int, atoms: tuple, seed: int = 100) -> list:
+    """``count`` network cells (``amorphous_network_cell``, the lever
+    sweep's data) of ``atoms[0]``-``atoms[1]`` atoms, sizes from the
+    config's seed."""
     import numpy as np
 
-    from diffusion_model_tpu_torch.data.synthetic import amorphous_cell
+    from diffusion_model_tpu_torch.data.synthetic import (
+        amorphous_network_cell,
+    )
 
     sizes = np.random.default_rng(cfg.seed).integers(
-        VARIANT_TRAIN_ATOMS[0], VARIANT_TRAIN_ATOMS[1] + 1, size=count)
-    return [amorphous_cell(seed=100 + i, num_atoms=int(n),
-                           spectrum_size=cfg.spectrum_size)
+        atoms[0], atoms[1] + 1, size=count)
+    return [amorphous_network_cell(seed=seed + i, num_atoms=int(n),
+                                   spectrum_size=cfg.spectrum_size)
             for i, n in enumerate(sizes)]
 
 
@@ -2300,23 +2321,23 @@ def variant_training(name: str, cfg, params, device) -> dict:
             batch //= 2
 
 
-def variant_steps(name: str, cfg, params, device) -> dict:
+def timed_steps(trainer, state, cells, device, count: int) -> dict:
+    """``count`` train steps of ``trainer`` from ``state`` on the batch
+    ``cells``: each loss and gradient norm, ms (CUDA events) and the host's
+    time in the call; peak memory; one more step under ``torch.profiler``
+    for the device's busy time, against the steady steps' ms (the device's
+    idle share); the kernel counts over all ``count + 1`` steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from diffusion_model_tpu_torch.data.batch import collate
     from diffusion_model_tpu_torch.train.loss import TrainNoise
-    from diffusion_model_tpu_torch.train.trainer import Trainer
 
-    cells = collate(variant_train_cells(cfg, cfg.batch_size), cfg.n_max,
-                    device)
-    trainer = Trainer(cfg, device=device)
-    state = trainer.init_state(cfg.seed, params=params)
+    cfg = trainer.cfg
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     reset_counts()
     steps = []
-    for i in range(VARIANT_TRAIN_STEPS):
+    for i in range(count):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2326,26 +2347,37 @@ def variant_steps(name: str, cfg, params, device) -> dict:
         host = time.perf_counter() - t0
         stop.record()
         torch.cuda.synchronize()
-        ms = start.elapsed_time(stop)
         steps.append({"loss": float(m["loss"]),
-                      "grad_norm": float(m["grad_norm"]), "ms": ms,
+                      "grad_norm": float(m["grad_norm"]),
+                      "ms": start.elapsed_time(stop),
                       "host_enqueue_ms": 1e3 * host})
     # one more step under the profiler: the device's busy time in a step
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        trainer.train_step(state, TrainNoise(
-            (cfg.seed, 13, VARIANT_TRAIN_STEPS), device), cells)
+        trainer.train_step(state, TrainNoise((cfg.seed, 13, count), device),
+                           cells)
         torch.cuda.synchronize()
     busy = 1e-3 * sum(e.time_range.elapsed_us() for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA)
     steady = sum(x["ms"] for x in steps[1:]) / max(len(steps) - 1, 1)
-    counts = read_counts()
-    rec = {"steps": steps, "counts": counts,
-           "profiled_step_device_busy_ms": busy,
-           "device_idle_share": max(0.0, 1.0 - busy / steady),
-           "max_memory_allocated_bytes":
-               torch.cuda.max_memory_allocated(device),
-           "optimizer": cfg.optimizer, "lr": cfg.lr,
-           "max_grad_norm": cfg.max_grad_norm}
+    return {"steps": steps, "counts": read_counts(),
+            "profiled_step_device_busy_ms": busy,
+            "device_idle_share": max(0.0, 1.0 - busy / steady),
+            "max_memory_allocated_bytes":
+                torch.cuda.max_memory_allocated(device),
+            "optimizer": cfg.optimizer, "lr": cfg.lr,
+            "max_grad_norm": cfg.max_grad_norm}
+
+
+def variant_steps(name: str, cfg, params, device) -> dict:
+    from diffusion_model_tpu_torch.data.batch import collate
+    from diffusion_model_tpu_torch.train.trainer import Trainer
+
+    cells = collate(network_cells(cfg, cfg.batch_size, VARIANT_TRAIN_ATOMS),
+                    cfg.n_max, device)
+    trainer = Trainer(cfg, device=device)
+    state = trainer.init_state(cfg.seed, params=params)
+    rec = timed_steps(trainer, state, cells, device, VARIANT_TRAIN_STEPS)
+    counts, steps = rec["counts"], rec["steps"]
     n = (VARIANT_TRAIN_STEPS + 1) * cfg.L
     want = ({"egcl_pair": 0, "egcl_knn": 0, "plain_edge_calls": n}
             if name == "rbf" else
@@ -2382,6 +2414,182 @@ def phase_variants(cfg, params, device, card: str) -> dict:
                         "(speed and routes only)",
              "forward": forward, "sampling": sampling, "training": training})
     return launches
+
+
+def network_recipe(**kw):
+    """The large-cell recipe as ``evals.size_gen_check`` builds it for
+    ``examples/size_generalization.py``'s 512-atom network run: kNN-32,
+    ``h_residual``, ``virtual_node``, ``h_init_scale`` 1e-3, L=5, 1024 /
+    256, bf16, lr 2e-4, clip 1, batch 32 of 448-512 atoms; ``kw`` on top."""
+    from diffusion_model_tpu_torch.evals import size_gen_check
+
+    args = size_gen_check.parser().parse_args([
+        "--generator", "network", "--train_min", str(NETWORK_ATOMS[0]),
+        "--train_max", str(NETWORK_ATOMS[1]), "--neighbor_k", str(LARGE_K),
+        "--batch_size", str(NETWORK_B), "--lr", "2e-4", "--max_grad_norm",
+        "1", "--h_init_scale", "1e-3", "--h_residual", "--virtual_node"])
+    return size_gen_check.recipe(args).replace(**kw)
+
+
+def network_train(cfg, device, cells) -> tuple:
+    """``NETWORK_STEPS`` timed train steps of ``cfg`` from a fresh init
+    (``timed_steps``), with K1 / K2 launches and plain-route calls a step,
+    and the gradients of the first step at the fresh init."""
+    from diffusion_model_tpu_torch.train.loss import TrainNoise
+    from diffusion_model_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg, device=device)
+    state = trainer.init_state(cfg.seed)
+    loss, _, _, grads = trainer.loss_and_grads(
+        state, TrainNoise((cfg.seed, 17), device), cells)
+    grads = (loss, grads)
+    rec = timed_steps(trainer, state, cells, device, NETWORK_STEPS)
+    rec["per_step"] = {k: v / (NETWORK_STEPS + 1)
+                       for k, v in rec["counts"].items()}
+    rec["remat_egcl"] = cfg.remat_egcl
+    rec["batch"] = cfg.batch_size
+    if not all(math.isfinite(x["loss"]) for x in rec["steps"]):
+        raise AssertionError(f"network recipe training: {rec}")
+    return rec, grads
+
+
+def phase_network_recipe(cfg, params, device, card: str) -> dict:
+    """The network-cell recipe at full width on the card (``network_recipe``;
+    fresh init, so speed, memory and routes only):
+
+    (i) 32 ``amorphous_network_cell``s of 448-512 atoms, three train steps
+    with ``remat_egcl`` off and three with it on (``timed_steps``): K2
+    5 launches a step off, 10 on (the recompute relaunches it); the first
+    step's loss and gradients equal bit for bit with and without remat;
+    (ii) the ``edge_rbf=8`` arm on the plain route: with remat at batch 32
+    and without at batch 8 (no configuration the reckoning puts over 70
+    GB): plain calls 10 a step with remat, 5 without, K1 / K2 never;
+    (iii) one 512-atom network cell at 250 uniform steps on K2 (1,255
+    launches), s per structure;
+    (iv) ``compat_scalar_norm`` with the flagship's weights (``cfg``,
+    ``params``), dense, 80 x 16: the card's plain route against the CPU in
+    float32 at phase 10b's gate, ``plain_edge_calls`` L a call and K1 never;
+    one bf16 train step at batch 64 (ms, finite loss)."""
+    import torch
+
+    from diffusion_model_tpu_torch import api
+    from diffusion_model_tpu_torch.data.batch import collate
+    from diffusion_model_tpu_torch.data.synthetic import (
+        amorphous_network_cell,
+    )
+    from diffusion_model_tpu_torch.diffusion.process import (
+        predefined_schedule,
+    )
+    from diffusion_model_tpu_torch.train.trainer import Trainer, params_tree
+
+    base = network_recipe()
+    rec = {"phase": "network_recipe", "card": card,
+           "config": {k: getattr(base, k) for k in (
+               "L", "m_hidden_size", "m_size", "neighbor_k", "h_residual",
+               "virtual_node", "h_init_scale", "compute_dtype", "lr",
+               "max_grad_norm", "batch_size", "n_max", "h_size")},
+           "weights": "fresh init (i-iii); flagship (iv)"}
+    t0 = time.perf_counter()
+    cells = network_cells(base, NETWORK_B, NETWORK_ATOMS, seed=300)
+    rec["cells_s"] = time.perf_counter() - t0
+    rec["atoms"] = [int(len(c["pos"])) for c in cells]
+    batch = collate(cells, base.n_max, device)
+
+    # (i) the recipe with and without remat
+    arms, grads = {}, {}
+    for remat in (False, True):
+        name = "remat" if remat else "no_remat"
+        arms[name], grads[name] = network_train(
+            base.replace(remat_egcl=remat), device, batch)
+        want = {"egcl_pair": 0, "egcl_knn": base.L * (2 if remat else 1),
+                "plain_edge_calls": 0}
+        if arms[name]["per_step"] != want:
+            raise AssertionError(f"network recipe {name}: "
+                                 f"{arms[name]['per_step']}, want {want}")
+    (loss, g), (r_loss, r_g) = grads["no_remat"], grads["remat"]
+    differ = [k for k in g if not torch.equal(g[k], r_g[k])]
+    rec["remat_first_step"] = {"loss": float(loss), "loss_equal": bool(
+        torch.equal(loss, r_loss)), "leaves": len(g), "leaves_differ": differ}
+    if differ or not torch.equal(loss, r_loss):
+        raise AssertionError(f"remat changed the first step: {differ}")
+    del grads, g, r_g
+    rec["recipe_512"] = arms
+
+    # (ii) the rbf arm on the plain route
+    rbf = {}
+    for remat, b in RBF_BATCH.items():
+        rcfg = base.replace(edge_rbf=8, edge_rbf_rmax=8.0, remat_egcl=remat,
+                            batch_size=b)
+        sub = collate(cells[:b], base.n_max, device)
+        rbf[f"remat_b{b}" if remat else f"no_remat_b{b}"] = arm = \
+            network_train(rcfg, device, sub)[0]
+        want = {"egcl_pair": 0, "egcl_knn": 0,
+                "plain_edge_calls": base.L * (2 if remat else 1)}
+        if arm["per_step"] != want:
+            raise AssertionError(f"rbf arm: {arm['per_step']}, want {want}")
+    rec["rbf_plain_route"] = rbf
+    torch.cuda.empty_cache()
+
+    # (iii) sampling one 512-atom network cell at 250 steps
+    scfg = base.replace(n_max=NETWORK_ATOMS[1])
+    trainer = Trainer(scfg, device=device)
+    fresh = params_tree(trainer.init_state(scfg.seed).eval_params(scfg))
+    model, calls = counting_model(scfg, fresh, device)
+    cond = collate([amorphous_network_cell(
+        seed=0, num_atoms=NETWORK_ATOMS[1],
+        spectrum_size=scfg.spectrum_size)], NETWORK_ATOMS[1], device)
+    schedule = predefined_schedule(scfg, device=device)
+    time_sample(model, schedule, scfg, cond, 2)
+    reset_counts()
+    calls[0] = 0
+    sec, finite = time_sample(model, schedule, scfg, cond, VARIANT_STEPS)
+    counts = read_counts()
+    rec["sampling_512"] = {"steps": VARIANT_STEPS, "grid": "uniform",
+                           "s_per_structure": sec,
+                           "atoms_steps_per_s":
+                               NETWORK_ATOMS[1] * VARIANT_STEPS / sec,
+                           "finite": finite, "denoiser_calls": calls[0],
+                           "counts": counts}
+    want = {"egcl_pair": 0, "egcl_knn": scfg.L * (VARIANT_STEPS + 1),
+            "plain_edge_calls": 0}
+    if counts != want or calls[0] != VARIANT_STEPS + 1:
+        raise AssertionError(f"network sampling: {counts}, want {want}")
+    del model, trainer
+
+    # (iv) compat_scalar_norm on the flagship, dense
+    ccfg = cfg.replace(compat_scalar_norm=True)
+    f32 = ccfg.replace(compute_dtype="float32")
+    card_model = api.denoiser_from_params(f32, params, device)
+    cpu_model = api.denoiser_from_params(f32, params, "cpu")
+    worst, per_call = 0.0, []
+    for i, t in enumerate(PLAIN_ROUTE_T):
+        inputs = seeded_inputs(f32, GEN_BATCH * GEN_PER_CONDITION, t, i)
+        reset_counts()
+        got = card_model(*(a.to(device) for a in inputs), None)
+        per_call.append(read_counts())
+        want = cpu_model(*inputs, None)
+        scale = max(float(w.abs().max()) for w in want)
+        for g_, w in zip(got, want):
+            torch.testing.assert_close(g_.cpu(), w, rtol=2e-4,
+                                       atol=2e-5 * scale)
+            worst = max(worst, float((g_.cpu() - w).abs().max()) / scale)
+    if any(c != {"egcl_pair": 0, "egcl_knn": 0, "plain_edge_calls": cfg.L}
+           for c in per_call):
+        raise AssertionError(f"compat forward: counts {per_call}")
+    trainer = Trainer(ccfg, device=device)
+    state = trainer.init_state(ccfg.seed, params=params)
+    graphs = collate(flagship_graphs(ccfg)[:TRAIN_B], ccfg.n_max, device)
+    steps = timed_steps(trainer, state, graphs, device, 2)
+    if steps["counts"]["egcl_pair"] or not all(
+            math.isfinite(x["loss"]) for x in steps["steps"]):
+        raise AssertionError(f"compat train step: {steps}")
+    rec["compat_scalar_norm"] = {
+        "batch": GEN_BATCH * GEN_PER_CONDITION, "n_max": cfg.n_max,
+        "card_vs_cpu_max_abs_err_over_scale": worst,
+        "tolerance": "float32 rtol 2e-4 / atol 2e-5 of the output scale",
+        "counts_per_call": per_call[0],
+        "train_batch": TRAIN_B, "train": steps}
+    log(rec)
 
 
 def phase_strided_scores(device, card: str) -> int:
@@ -2750,6 +2958,7 @@ def main() -> int:
     strided = kernels_only("strided_scores", phase_strided_scores, device,
                            card)
     variants = phase_variants(cfg, params, device, card)
+    phase_network_recipe(cfg, params, device, card)
     log({"phase": "flagship_routes", "plain_edge_calls": plain_calls,
          "egcl_pair_launches_served": pair_launches,
          "egcl_knn_launches_served": knn_launches,

@@ -7,15 +7,16 @@ a field here, so a config round-trips. What the port does with each:
 - it honours the fields conditional generation and training read (dense
   topology, or kNN lists with the virtual node and the residual node
   update; the radial-basis edge features ``edge_rbf`` / ``edge_rbf_rmax``
-  and the global radius feature; the predefined or the learned noise
-  schedule; the optimizers, the loss's levers, the initialisers,
-  ``checkpoint_every`` and ``debug_nans``);
+  and the global radius feature; ``compat_scalar_norm`` on the dense
+  topology; the predefined or the learned noise schedule; the optimizers,
+  the loss's levers, the initialisers, ``remat_egcl``, ``checkpoint_every``
+  and ``debug_nans``);
 - ``Config`` raises ``NotImplementedError``, naming the field, for a value
   of ``_SUPPORTED`` whose code path the port does not have yet;
 - the fields of ``JAX_ONLY`` no code of the port reads: the table says for
   each why any value is refused or cannot change a result;
 - ``train.Trainer`` refuses the training settings it has no path for
-  (``kabsch_loss``, ``remat_egcl``, a mesh).
+  (``kabsch_loss``, a mesh).
 
 ``from_dict`` ignores keys that are no field (a run's extras). No yaml:
 PyTorch does not depend on PyYAML, so a module-level ``import yaml`` would
@@ -31,7 +32,6 @@ import torch
 
 # (field, value the port supports): any other value raises.
 _SUPPORTED = (
-    ("compat_scalar_norm", False),
     ("ring_sample", False),
     ("spectrum_to_latent", False),
     ("x_size", 3),
@@ -116,7 +116,8 @@ class Config:
     t_loss_weight: float = 1.0
     zero_init_x: bool = True
     h_init_scale: float = 1.0
-    # training paths the port does not have (train.Trainer refuses them)
+    # training paths the port does not have (train.Trainer refuses them),
+    # and remat_egcl: each EGCL's forward recomputed in the backward
     kabsch_loss: bool = False
     kabsch_loss_steps: int = 0
     kabsch_loss_weight: float = 1.0
@@ -152,7 +153,9 @@ class Config:
     # node feature after exO
     global_radius_feature: bool = False
 
-    # variants the port rejects (see _SUPPORTED)
+    # the coordinate update divided by one Frobenius norm of the pair grid
+    # per graph (dense topology only); the variants after it the port
+    # rejects (see _SUPPORTED)
     compat_scalar_norm: bool = False
     ring_sample: bool = False
     spectrum_to_latent: bool = False

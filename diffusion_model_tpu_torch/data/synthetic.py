@@ -1,11 +1,15 @@
-"""Synthetic SiO2 data (numpy only): local environments and amorphous cells.
+"""Synthetic data (numpy, with scipy's k-d tree for the network cells):
+local environments, molecules and amorphous cells.
 
 The same generators, draw for draw, as ``diffusion_model_tpu.data.synthetic``
 ``synthetic_sio2_dataset`` (with ``make_graph`` and ``_random_unit_vectors``),
-``amorphous_cell`` and the ``synthetic_spectrum`` both call, so a seed gives
-the same graphs in both packages, bit for bit on one numpy. The flagship's
-test conditions come from the first (split by ``data.split``), ``bench.py``'s
-large cells (1024+ atoms) from the second.
+``synthetic_molecule_dataset``, ``amorphous_cell``, ``amorphous_network_cell``
+and the ``synthetic_spectrum`` they call, so a seed gives the same graphs in
+both packages, bit for bit on one numpy. The flagship's test conditions come
+from the first (split by ``data.split``), ``bench.py``'s large cells (1024+
+atoms) from ``amorphous_cell``, the large-cell recipe's cells from
+``amorphous_network_cell``; ``cached_cell`` memoises a cell on disk under the
+JAX package's key and payload, so either package reads the other's cache.
 
 A local environment: node 0 the excited oxygen (exO) at the origin, species
 one-hot O = [1, 0]; CN in {2, 3, 4} Si neighbours at ~1.62 A (Si = [0, 1]),
@@ -16,6 +20,7 @@ angle.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -110,6 +115,35 @@ def synthetic_sio2_dataset(seed: int, num_graphs: int, n_max: int,
             for _ in range(num_graphs)]
 
 
+def synthetic_molecule_dataset(seed: int, num_graphs: int, n_max: int,
+                               atom_type_size: int = 5,
+                               spectrum_size: int = 200) -> list:
+    """Multi-species clusters of 3 to ``min(n_max, 9)`` atoms, the
+    ``atom_type_size=5`` smoke path: species one-hot over ``atom_type_size``
+    classes, node 0 at the origin, bond lengths keyed to the species index,
+    directions pairwise at least 40 degrees apart."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for g in range(num_graphs):
+        n = int(rng.integers(3, min(n_max, 9) + 1))
+        types = rng.integers(0, atom_type_size, n)
+        dirs = _random_unit_vectors(rng, n - 1, min_angle_deg=40.0)
+        pos = [np.zeros(3)]
+        for i in range(n - 1):
+            r = 1.0 + 0.15 * types[i + 1] + rng.normal(0, 0.03)
+            pos.append(dirs[i] * r)
+        pos = np.asarray(pos, np.float32)
+        species = np.eye(atom_type_size, dtype=np.float32)[types]
+        spectrum = np.zeros((n, spectrum_size), np.float32)
+        spectrum[0] = synthetic_spectrum(int(types.sum() % 3 + 2), rng,
+                                         spectrum_size)
+        exo = np.zeros((n, 1), np.float32)
+        exo[0, 0] = 1.0
+        out.append({"pos": pos, "species": species, "spectrum": spectrum,
+                    "exo": exo, "id": f"mol_{seed}_{g}"})
+    return out
+
+
 def amorphous_cell(seed: int, num_atoms: int, density_si_ratio: float = 1 / 3,
                    spectrum_size: int = 200) -> dict:
     """An amorphous-like SiO2 cell of ``num_atoms`` atoms as a graph dict:
@@ -136,3 +170,113 @@ def amorphous_cell(seed: int, num_atoms: int, density_si_ratio: float = 1 / 3,
     exo[0, 0] = 1.0
     return {"pos": pos, "species": species, "spectrum": spectrum, "exo": exo,
             "cn": 4, "id": f"amorphous_{seed}"}
+
+
+def amorphous_network_cell(seed: int, num_atoms: int,
+                           spectrum_size: int = 200,
+                           bond_length: float = 1.61,
+                           si_o_si_deg: float = 147.0,
+                           jitter: float = 0.12) -> dict:
+    """A continuous-random-network SiO2 cluster of ``num_atoms`` atoms:
+    a beta-cristobalite (diamond) Si sublattice sized so that Si-O is
+    ``bond_length`` and Si-O-Si ``si_o_si_deg``, every bridging O moved off
+    its Si-Si axis by a random azimuth, Gaussian ``jitter`` on every site, a
+    random rotation, and the ball of sites nearest an O near the centre,
+    which becomes the exO at the origin (atom 0). CN(Si) = 4, CN(O) = 2,
+    silica's number density; the exO spectrum encodes CN 2 and the exO's
+    own Si-O-Si angle.
+
+    The draws, in order: the azimuths (``normal`` of the bonds' shape), the
+    jitter, the 3x3 rotation, the spectrum. The bonds come from
+    ``cKDTree.query_pairs`` as an array and the ball from a stable argsort,
+    as the JAX package has them: another order of either gives other
+    cells."""
+    rng = np.random.default_rng(seed)
+    theta = np.radians(si_o_si_deg)
+    d_sisi = 2.0 * bond_length * np.sin(theta / 2.0)
+    a = 4.0 * d_sisi / np.sqrt(3.0)
+    delta = bond_length * np.cos(theta / 2.0)   # O off-axis displacement
+    density = 24.0 / a**3   # atoms per A^3 (24 a cubic cell)
+    radius = (num_atoms / density * 3.0 / (4.0 * np.pi)) ** (1.0 / 3.0)
+    ncell = int(np.ceil((radius + a) / a))
+
+    fcc = np.array([[0, 0, 0], [0, .5, .5], [.5, 0, .5], [.5, .5, 0]])
+    basis = np.concatenate([fcc, fcc + 0.25])
+    cells = np.arange(-ncell, ncell + 1)
+    grid = np.stack(np.meshgrid(cells, cells, cells,
+                                indexing="ij"), -1).reshape(-1, 3)
+    si = ((grid[:, None, :] + basis[None, :, :]).reshape(-1, 3) * a
+          ).astype(np.float64)
+    si = si[np.linalg.norm(si, axis=-1) < radius + a]
+
+    from scipy.spatial import cKDTree
+    pairs = cKDTree(si).query_pairs(d_sisi * 1.05, output_type="ndarray")
+
+    mid = 0.5 * (si[pairs[:, 0]] + si[pairs[:, 1]])
+    axis = si[pairs[:, 1]] - si[pairs[:, 0]]
+    axis /= np.linalg.norm(axis, axis=-1, keepdims=True)
+    rand = rng.normal(size=axis.shape)
+    perp = rand - np.sum(rand * axis, axis=-1, keepdims=True) * axis
+    perp /= np.linalg.norm(perp, axis=-1, keepdims=True)
+    ox = mid + delta * perp
+
+    pos = np.concatenate([si, ox])
+    is_o = np.zeros(len(pos), bool)
+    is_o[len(si):] = True
+    pos = pos + rng.normal(0.0, jitter, pos.shape)
+
+    q, r = np.linalg.qr(rng.normal(size=(3, 3)))
+    q *= np.sign(np.diag(r))
+    if np.linalg.det(q) < 0:
+        q[:, 0] *= -1
+    pos = pos @ q.T
+
+    o_idx = np.nonzero(is_o)[0]
+    exo_site = o_idx[np.argmin(np.linalg.norm(pos[o_idx], axis=-1))]
+    pos = pos - pos[exo_site]
+    order = np.argsort(np.linalg.norm(pos, axis=-1), kind="stable")
+    keep = order[:num_atoms]   # keep[0] is the exO (distance 0)
+    pos_k = pos[keep].astype(np.float32)
+    is_o_k = is_o[keep]
+
+    species = np.zeros((num_atoms, 2), np.float32)
+    species[is_o_k] = [1.0, 0.0]
+    species[~is_o_k] = [0.0, 1.0]
+
+    # the exO's Si-O-Si angle, from its two nearest Si
+    si_k = pos_k[~is_o_k]
+    nb = si_k[np.argsort(np.linalg.norm(si_k, axis=-1))[:2]]
+    cosang = np.dot(nb[0], nb[1]) / (
+        np.linalg.norm(nb[0]) * np.linalg.norm(nb[1]))
+    angle = float(np.degrees(np.arccos(np.clip(cosang, -1.0, 1.0))))
+
+    spectrum = np.zeros((num_atoms, spectrum_size), np.float32)
+    spectrum[0] = synthetic_spectrum(2, rng, spectrum_size,
+                                     mean_angle_deg=angle)
+    exo_col = np.zeros((num_atoms, 1), np.float32)
+    exo_col[0, 0] = 1.0
+    return {"pos": pos_k, "species": species, "spectrum": spectrum,
+            "exo": exo_col, "cn": 2, "id": f"network_{seed}"}
+
+
+def cached_cell(maker, cache_dir: str, **kw) -> dict:
+    """``maker(**kw)``, memoised in ``cache_dir`` as one ``.npz`` per cell,
+    named by the maker's name and its sorted keyword arguments (the JAX
+    package's key and payload, so either package reads the other's
+    entries). A write goes to a temporary file renamed into place, so an
+    interrupted run leaves no partial entry."""
+    key = "_".join([maker.__name__] + [f"{k}={kw[k]}" for k in sorted(kw)])
+    path = os.path.join(cache_dir, key + ".npz")
+    if os.path.exists(path):
+        z = np.load(path, allow_pickle=False)
+        out = {k: z[k] for k in z.files}
+        out["id"] = str(out["id"])
+        out["cn"] = int(out["cn"])
+        return out
+    g = maker(**kw)
+    os.makedirs(cache_dir, exist_ok=True)
+    tmp = path + f".tmp{os.getpid()}"
+    with open(tmp, "wb") as f:
+        np.savez(f, **g)
+    os.replace(tmp, path)
+    return g

@@ -1,5 +1,17 @@
-"""Evaluators of generated structures: RDF similarity and CN2 geometry."""
+"""Evaluators of generated structures: RDF similarity, CN2 geometry and the
+amorphous structure panel."""
 
+from diffusion_model_tpu_torch.evals.amorphous import (
+    aggregate_exo_rdf,
+    bond_angle_samples,
+    coordination_stats,
+    envelope_matched_cloud,
+    excess_rdf_cos,
+    exo_rdf_resampling_ceiling,
+    pair_distances,
+    radial_envelope,
+    structure_panel,
+)
 from diffusion_model_tpu_torch.evals.cn2 import (
     aligned_group_means,
     cn2_statistics,
@@ -12,6 +24,15 @@ from diffusion_model_tpu_torch.evals.cn2 import (
 from diffusion_model_tpu_torch.evals.rdf import evaluate_rdf_lists, rdf_metrics
 
 __all__ = [
+    "aggregate_exo_rdf",
+    "bond_angle_samples",
+    "coordination_stats",
+    "envelope_matched_cloud",
+    "excess_rdf_cos",
+    "exo_rdf_resampling_ceiling",
+    "pair_distances",
+    "radial_envelope",
+    "structure_panel",
     "aligned_group_means",
     "cn2_statistics",
     "conditional_angle_parity",

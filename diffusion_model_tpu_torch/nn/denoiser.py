@@ -54,7 +54,8 @@ class DiffusionDenoiser(nn.Module):
             h_residual=cfg.h_residual, virtual_node=cfg.virtual_node,
             zero_init_x=cfg.zero_init_x, h_init_scale=cfg.h_init_scale,
             edge_rbf=cfg.edge_rbf, edge_rbf_rmax=cfg.edge_rbf_rmax,
-            device=device)
+            compat_scalar_norm=cfg.compat_scalar_norm,
+            remat_egcl=cfg.remat_egcl, device=device)
         if cfg.global_radius_feature:
             self.radius_feature_gate = nn.Parameter(
                 torch.zeros(1, device=device))

@@ -28,6 +28,20 @@ m_hidden]`` and ``rbf_x [K, x_hidden]``. Neither kernel computes that term
 (the JAX package's Pallas kernels compute none either), so such a layer
 always takes the plain route, whatever its widths.
 
+With ``compat_scalar_norm`` (dense topology only; the kNN route raises, as
+in the JAX package) the coordinate update divides by one norm per graph,
+the Frobenius norm of its whole masked pair grid (``ops.egcl_pair.
+compat_norm``), in place of each edge's length. K1 divides per edge, so
+such a layer takes the plain route too; the norm is computed over all
+pairs before the plain statement is cut into chunks of targets.
+
+``remat_egcl`` recomputes each layer's forward in the backward
+(``torch.utils.checkpoint``, where grad mode is on): a layer's activations
+are freed after its forward. The recompute casts the weights again and
+launches the layer's edge function again, so a train step launches K1/K2
+(or adds to ``plain_edge_calls``) twice a layer; the parameter names stay
+``egcl_{l}.*``.
+
 Two large-cell options compose outside the edge function, on both routes:
 ``virtual_node`` adds an O(N) global-context channel (a virtual node at the
 masked centre of mass, computed from the layer's input h and x) to the
@@ -49,6 +63,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from diffusion_model_tpu_torch.ops import egcl_knn, egcl_pair
 from diffusion_model_tpu_torch.ops.com import masked_mean
@@ -66,21 +81,26 @@ plain_edge_calls = 0
 
 
 def edge_route(m_hidden: int, x_hidden: int, m_out: int, dtype: torch.dtype,
-               hdim: int | None = None, edge_rbf: int = 0) -> str:
+               hdim: int | None = None, edge_rbf: int = 0,
+               compat_scalar_norm: bool = False) -> str:
     """The route of an EGCL's edge work, from its config alone, before any
     call: ``"kernel"`` (the layer's edge function: the CUDA kernel on the
     card) or ``"plain"`` (``plain_edges``). ``"plain"`` exactly where the
     layer has a radial-basis term (``edge_rbf`` > 0: no kernel computes
-    one) or a shape limit of the kernels fails: the first-layer widths
-    differ or are not multiples of 64, ``m_out`` is not a multiple of 64 or
-    exceeds 256, a bfloat16 first layer is wider than ``MAX_F1``, or (kNN,
-    ``hdim`` given) the node width exceeds ``MAX_H``. What the kernel refuses
-    for any other reason (dtype, device, layout, grad) it still refuses. The
-    JAX package routes by config the same way (``api.sampling_uses_pallas``
-    keeps ``edge_rbf`` on XLA); its XLA path takes any width. On the CPU
-    both routes are the plain statement; only ``"plain"`` cuts it into
-    chunks and counts the call."""
-    fits = (edge_rbf == 0 and m_hidden == x_hidden and m_hidden % 64 == 0
+    one), divides by a per-graph norm (``compat_scalar_norm``: K1 divides
+    each edge by its own length, and the JAX package's fast path, which
+    never reads the flag, would drop the norm) or a shape limit of the
+    kernels fails: the first-layer widths differ or are not multiples of
+    64, ``m_out`` is not a multiple of 64 or exceeds 256, a bfloat16 first
+    layer is wider than ``MAX_F1``, or (kNN, ``hdim`` given) the node width
+    exceeds ``MAX_H``. What the kernel refuses for any other reason (dtype,
+    device, layout, grad) it still refuses. The JAX package routes by
+    config the same way (``api.sampling_uses_pallas`` keeps ``edge_rbf`` on
+    XLA, and sends every dense model to XLA); its XLA path takes any width.
+    On the CPU both routes are the plain statement; only ``"plain"`` cuts
+    it into chunks and counts the call."""
+    fits = (edge_rbf == 0 and not compat_scalar_norm
+            and m_hidden == x_hidden and m_hidden % 64 == 0
             and m_out % 64 == 0 and m_out <= 256
             and not (dtype == torch.bfloat16 and m_hidden > egcl_pair.MAX_F1)
             and (hdim is None or 1 <= hdim <= egcl_knn.MAX_H))
@@ -88,14 +108,15 @@ def edge_route(m_hidden: int, x_hidden: int, m_out: int, dtype: torch.dtype,
 
 
 def plain_edges(reference: Callable, args: tuple, sources: int, width: int,
-                budget: int = PLAIN_EDGE_ELEMENTS):
+                budget: int = PLAIN_EDGE_ELEMENTS, norm=None):
     """``reference`` (``egcl_pair_edges_reference`` or
     ``egcl_knn_edges_reference``) over ``args``, in chunks of whole graphs,
     or of one graph's targets where a graph is too large (``ops.edge_grad.
     edge_chunks``), so that no ``[graphs, targets, sources, width]``
     intermediate exceeds ``budget`` elements. The first ``GRAPH_ARGS`` of
-    both are per graph; the rest (weights, an ``rbf`` term) pass whole.
-    Returns (m_sum [B,N,Fm], x_out [B,N,3]) float32, as
+    both are per graph; the rest (weights, an ``rbf`` term) pass whole;
+    ``norm`` (``[B, 1, 1, 1]``, the dense reference's per-graph divisor) is
+    per graph too. Returns (m_sum [B,N,Fm], x_out [B,N,3]) float32, as
     the reference does; written chunk by chunk into fresh tensors, which
     autograd follows."""
     global plain_edge_calls
@@ -104,7 +125,8 @@ def plain_edges(reference: Callable, args: tuple, sources: int, width: int,
     m_sum = x_out = None
     for g, t in edge_chunks(b, n, sources, width, budget):
         per_graph = tuple(a[g] for a in args[:GRAPH_ARGS])
-        m, x = reference(*per_graph, *args[GRAPH_ARGS:], targets=t)
+        kw = {} if norm is None else {"norm": norm[g]}
+        m, x = reference(*per_graph, *args[GRAPH_ARGS:], targets=t, **kw)
         if m_sum is None:
             m_sum = m.new_empty((b, n, m.shape[-1]))
             x_out = x.new_empty((b, n, 3))
@@ -254,7 +276,7 @@ class EGCL(nn.Module):
                  h_residual: bool = False, virtual_node: bool = False,
                  zero_init_x: bool = True, h_init_scale: float = 1.0,
                  edge_rbf: int = 0, edge_rbf_rmax: float = 8.0,
-                 device=None):
+                 compat_scalar_norm: bool = False, device=None):
         super().__init__()
         if edge_rbf and (edge_rbf < 2 or not edge_rbf_rmax > 0):
             raise ValueError(
@@ -263,6 +285,7 @@ class EGCL(nn.Module):
                 "(num - 1)); use edge_rbf=0 to disable")
         self.compute_dtype = compute_dtype
         self.edge_rbf, self.edge_rbf_rmax = edge_rbf, float(edge_rbf_rmax)
+        self.compat_scalar_norm = compat_scalar_norm
         self.edge_fn = edge_fn
         self.knn_edge_fn = knn_edge_fn
         self.h_residual = h_residual
@@ -350,15 +373,22 @@ class EGCL(nn.Module):
         am_i, ax_i = h_c @ mi_k + mi_b, h_c @ xi_k + xi_b
         m_hidden, m_out = mi_k.shape[-1], w["heads"][0].shape[-1]
         x_hidden = xi_k.shape[-1]
+        norm = None
         if edges is None:
             args = (am_i, h_c @ mj_k, ax_i, h_c @ xj_k, x_f,
                     node_mask.to(f32).unsqueeze(-1), m_d2, x_d2, *w["heads"])
             route = edge_route(m_hidden, x_hidden, m_out, dt,
-                               edge_rbf=self.edge_rbf)
+                               edge_rbf=self.edge_rbf,
+                               compat_scalar_norm=self.compat_scalar_norm)
+            if self.compat_scalar_norm:
+                norm = egcl_pair.compat_norm(x_f, node_mask)
             reference, edge_fn, sources = (
                 egcl_pair.egcl_pair_edges_reference, self.edge_fn,
                 h.shape[1])
         else:
+            if self.compat_scalar_norm:
+                raise NotImplementedError(
+                    "compat_scalar_norm is a dense-path-only validation mode")
             idx, edge_mask = edges
             args = (am_i, ax_i, h_c, x_f, idx, edge_mask, mj_k, xj_k, m_d2,
                     x_d2, *w["heads"])
@@ -371,7 +401,8 @@ class EGCL(nn.Module):
             args = args + (w["rbf"],)
         if route == "plain":
             m_sum, x_new = plain_edges(reference, args, sources,
-                                       max(m_hidden, x_hidden, m_out))
+                                       max(m_hidden, x_hidden, m_out),
+                                       norm=norm)
         else:
             m_sum, x_new = edge_fn(*args)
         if self.virtual_node:
@@ -410,7 +441,9 @@ class EGCL(nn.Module):
 
 
 class EquivariantGNN(nn.Module):
-    """Stack of L EGCLs, named ``egcl_0`` .. ``egcl_{L-1}``."""
+    """Stack of L EGCLs, named ``egcl_0`` .. ``egcl_{L-1}``; with
+    ``remat_egcl`` each is called through ``torch.utils.checkpoint`` where
+    grad mode is on, and directly under ``no_grad``."""
 
     def __init__(self, L: int, hdim: int, m_hidden: int, m_out: int,
                  x_hidden: int, h_hidden: int,
@@ -420,9 +453,11 @@ class EquivariantGNN(nn.Module):
                  h_residual: bool = False, virtual_node: bool = False,
                  zero_init_x: bool = True, h_init_scale: float = 1.0,
                  edge_rbf: int = 0, edge_rbf_rmax: float = 8.0,
+                 compat_scalar_norm: bool = False, remat_egcl: bool = False,
                  device=None):
         super().__init__()
         self.L = L
+        self.remat_egcl = remat_egcl
         for l in range(L):
             self.add_module(f"egcl_{l}", EGCL(
                 hdim, m_hidden, m_out, x_hidden, h_hidden, hdim,
@@ -430,10 +465,17 @@ class EquivariantGNN(nn.Module):
                 knn_edge_fn=knn_edge_fn, h_residual=h_residual,
                 virtual_node=virtual_node, zero_init_x=zero_init_x,
                 h_init_scale=h_init_scale, edge_rbf=edge_rbf,
-                edge_rbf_rmax=edge_rbf_rmax, device=device))
+                edge_rbf_rmax=edge_rbf_rmax,
+                compat_scalar_norm=compat_scalar_norm, device=device))
 
     def forward(self, h: torch.Tensor, x: torch.Tensor,
                 node_mask: torch.Tensor, edges=None):
+        remat = self.remat_egcl and torch.is_grad_enabled()
         for l in range(self.L):
-            h, x = getattr(self, f"egcl_{l}")(h, x, node_mask, edges)
+            layer = getattr(self, f"egcl_{l}")
+            if remat:
+                h, x = checkpoint(layer, h, x, node_mask, edges,
+                                  use_reentrant=False)
+            else:
+                h, x = layer(h, x, node_mask, edges)
         return h, x

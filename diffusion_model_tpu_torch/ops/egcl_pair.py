@@ -14,8 +14,10 @@ with i != j (pair mask pm)::
 
 The plain statement also takes an edge model's radial-basis term (``rbf``:
 ``rbf(|x_i - x_j|) @ W_rbf_m`` added to pre_m and ``@ W_rbf_x`` to pre_x,
-``ops.edges.rbf_features`` under the pair mask); the kernel computes none,
-as the Pallas kernel computes none, and ``egcl_pair_edges`` refuses it.
+``ops.edges.rbf_features`` under the pair mask) and a ``compat_scalar_norm``
+model's divisor (``norm``: one value per graph in place of ``|x_i - x_j|``,
+``compat_norm``); the kernel computes neither, as the Pallas kernel computes
+neither, and ``egcl_pair_edges`` refuses both.
 
 The kernel (``csrc/egcl_pair.cu``) is bound by tensor-core FLOPs: 2.62
 MFLOP per live pair at F1=1024, Fm=256, against at most 8 KB of node input
@@ -65,13 +67,14 @@ MAX_F1 = 1024   # first-layer width of the bf16 kernel (csrc kMaxF1)
 
 def egcl_pair_edges_reference(am_i, am_j, ax_i, ax_j, x, mask, w_dm, w_dx,
                               w2m, b2m, wa, ba, w2x, b2x, wx3, bx3, rbf=None,
-                              targets: slice = slice(None)):
+                              targets: slice = slice(None), norm=None):
     """Plain float32 statement of the kernel's math (materialises the
     ``[B, T, N, F]`` edge tensors) for the targets ``i`` in ``targets`` (all
     by default), with the radial-basis term where ``rbf`` is given as
     ``(W_rbf_m [K, F1], W_rbf_x [K, F1], rmax)`` (kernels in the compute
-    dtype, the features cast to it). Returns (m_sum [B,T,Fm],
-    x_out [B,T,3])."""
+    dtype, the features cast to it), and the coordinate update divided by
+    ``norm [B, 1, 1, 1] + 1`` (``compat_norm``) where it is given, else by
+    ``|x_i - x_j| + 1``. Returns (m_sum [B,T,Fm], x_out [B,T,3])."""
     f32 = torch.float32
     am_i, am_j, ax_i, ax_j, x = (v.to(f32) for v in (am_i, am_j, ax_i, ax_j, x))
     n = am_i.shape[1]
@@ -93,10 +96,30 @@ def egcl_pair_edges_reference(am_i, am_j, ax_i, ax_j, x, mask, w_dm, w_dx,
 
     u = F.silu(F.silu(pre_x) @ w2x.to(f32) + b2x.to(f32))
     s = u @ wx3.to(f32) + bx3.to(f32)                        # [B,T,N,1]
-    norm = torch.sqrt(torch.where(pm > 0, d2.clamp_min(1e-12),
-                                  torch.ones_like(d2)))
+    if norm is None:
+        norm = torch.sqrt(torch.where(pm > 0, d2.clamp_min(1e-12),
+                                      torch.ones_like(d2)))
     upd = diff * s / (norm + 1.0) * pm
     return m_sum, x_i + upd.sum(dim=2)
+
+
+def compat_norm(x: torch.Tensor, node_mask: torch.Tensor) -> torch.Tensor:
+    """``[B, 1, 1, 1]`` float32: the ``compat_scalar_norm`` divisor, one
+    Frobenius norm per graph over its whole masked pair grid,
+    ``sqrt(sum_ij |x_i - x_j|^2 pm_ij)`` (the JAX package's
+    ``nn/egnn.py`` ``_dense_call``), computed before the edge work is cut
+    into chunks of targets, which each see only their own rows of the grid.
+    As in JAX the sqrt has no guard: a graph with one live atom has sum 0,
+    a finite forward and an infinite gradient."""
+    f32 = torch.float32
+    x = x.to(f32)
+    m = node_mask.to(f32).reshape(x.shape[0], x.shape[1])
+    n = x.shape[1]
+    pm = (m[:, :, None] * m[:, None, :]
+          * (1.0 - torch.eye(n, dtype=f32, device=x.device)))
+    diff = x[:, :, None, :] - x[:, None, :, :]
+    d2 = (diff * diff).sum(dim=-1)
+    return torch.sqrt((d2 * pm).sum(dim=(-1, -2)))[:, None, None, None]
 
 
 def add_rbf(pre_m, pre_x, d2, valid, w_rbf_m, w_rbf_x, rmax):
@@ -116,6 +139,15 @@ def refuse_rbf(rbf, kernel: str) -> None:
             f"the {kernel} kernel computes no radial-basis (edge_rbf) term; "
             "an edge_rbf model's edge work runs the plain statement "
             "(nn.egnn.edge_route)")
+
+
+def refuse_norm(norm) -> None:
+    """Raise where a per-graph norm reaches K1, which divides per edge."""
+    if norm is not None:
+        raise ValueError(
+            "the pair (K1) kernel divides by each edge's length and takes no "
+            "per-graph norm; a compat_scalar_norm model's edge work runs the "
+            "plain statement (nn.egnn.edge_route)")
 
 
 def edge_tiles(mask) -> _tiles.EdgeTiles:
@@ -202,7 +234,7 @@ def build() -> None:
 
 
 def egcl_pair_edges(am_i, am_j, ax_i, ax_j, x, mask, w_dm, w_dx, w2m, b2m,
-                    wa, ba, w2x, b2x, wx3, bx3, rbf=None):
+                    wa, ba, w2x, b2x, wx3, bx3, rbf=None, norm=None):
     """Fused EGCL edge work (see module docstring).
 
     Args:
@@ -213,14 +245,16 @@ def egcl_pair_edges(am_i, am_j, ax_i, ax_j, x, mask, w_dm, w_dx, w2m, b2m,
         ``[F1, F1]`` compute dtype; b2m ``[1, Fm]``, wa ``[Fm, 1]``,
         ba ``[1, 1]``, b2x ``[1, F1]``, wx3 ``[F1, 1]``, bx3 ``[1, 1]``
         float32.
-      rbf: None. The kernel computes no radial-basis term, on any device,
-        and raises ``ValueError`` rather than drop one.
+      rbf, norm: None. The kernel computes no radial-basis term and no
+        per-graph norm, on any device, and raises ``ValueError`` rather than
+        drop one.
 
     Returns:
       (m_sum ``[B, N, Fm]`` float32, x_out ``[B, N, 3]`` float32),
       differentiable in every input but ``mask`` where autograd records.
     """
     refuse_rbf(rbf, "pair (K1)")
+    refuse_norm(norm)
     args = (am_i, am_j, ax_i, ax_j, x, mask, w_dm, w_dx, w2m, b2m, wa, ba,
             w2x, b2x, wx3, bx3)
     device = am_i.device

@@ -65,8 +65,6 @@ from diffusion_model_tpu_torch.train.loss import (
 _NOT_PORTED = (
     ("kabsch_loss", "the Kabsch coordinate loss (ops/kabsch.py and a "
      "differentiable sampler), ROADMAP.md queue 1 item 5"),
-    ("remat_egcl", "rematerialised EGCL layers (torch.utils.checkpoint), "
-     "ROADMAP.md queue 1 item 5"),
     ("mesh_shape", "data-parallel training on a mesh (DDP, with the ring), "
      "ROADMAP.md queue 1 item 9"),
 )

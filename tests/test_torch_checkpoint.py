@@ -81,7 +81,8 @@ def test_config_matches_jax_field_for_field():
 
 @pytest.mark.parametrize("field,value", [
     ("neighbor_k", 32), ("virtual_node", True), ("h_residual", True),
-    ("edge_rbf", 8), ("global_radius_feature", True)])
+    ("edge_rbf", 8), ("global_radius_feature", True),
+    ("compat_scalar_norm", True), ("remat_egcl", True)])
 def test_large_cell_settings_carry_over(field, value):
     d = {field: value}
     assert getattr(jax_from_dict(d), field) == value
@@ -89,8 +90,7 @@ def test_large_cell_settings_carry_over(field, value):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("compat_scalar_norm", True), ("ring_sample", True),
-    ("spectrum_to_latent", True),
+    ("ring_sample", True), ("spectrum_to_latent", True),
 ])
 def test_unported_settings_raise_naming_the_field(field, value):
     d = {field: value}

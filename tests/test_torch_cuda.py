@@ -686,3 +686,35 @@ def test_radius_model_runs_the_kernels_on_the_card(cuda_device, k):
     scale = max(float(w.abs().max()) for w in want)
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, rtol=2e-4, atol=2e-5 * scale)
+
+
+# -- remat_egcl: the recompute relaunches K2 and gives the same bits --------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_remat_gradients_through_k2_equal_bit_for_bit(cuda_device, dtype):
+    from diffusion_model_tpu_torch.nn.denoiser import DiffusionDenoiser
+
+    cfg, cpu, _, inputs = _variant_model(cuda_device, compute_dtype=dtype)
+    card_in = [a.to(cuda_device) for a in inputs]
+    edges = knn_edges(card_in[1], card_in[5], cfg.neighbor_k)
+    # the outputs are (eps_x, eps_h): the shapes of pos and species
+    weights = [torch.randn(a.shape, generator=torch.Generator().manual_seed(
+        i)).to(cuda_device) for i, a in enumerate((inputs[1], inputs[0]))]
+    runs = []
+    for remat in (False, True):
+        model = DiffusionDenoiser(cfg.replace(remat_egcl=remat),
+                                  device=cuda_device)
+        model.load_state_dict(cpu.state_dict())
+        before = egcl_knn.egcl_knn_launches
+        out = model(*card_in, edges)
+        loss = sum((o.float() * w).sum() for o, w in zip(out, weights))
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        runs.append((loss, grads, egcl_knn.egcl_knn_launches - before))
+    (loss, grads, launches), (r_loss, r_grads, r_launches) = runs
+    assert (launches, r_launches) == (cfg.L, 2 * cfg.L)
+    assert torch.equal(loss, r_loss)
+    for g, r in zip(grads, r_grads):
+        assert torch.equal(g, r)
+    assert any(bool(g.abs().sum() > 0) for g in grads)

@@ -440,7 +440,6 @@ def test_api_train_runs_rolls_back_and_stops(tmp_path):
 
 
 @pytest.mark.parametrize("kw,what", [(dict(kabsch_loss=True), "Kabsch"),
-                                     (dict(remat_egcl=True), "remat"),
                                      (dict(mesh_shape=(2,)), "mesh")])
 def test_trainer_refuses_paths_it_has_not(kw, what):
     _, cfg = cfgs(**kw)
