@@ -154,7 +154,24 @@ Phases, each printed as one JSON line:
      remat at batch 32 and without at batch 8, one 512-atom cell at 250
      uniform steps through K2 (1,255 launches), and ``compat_scalar_norm``
      on the flagship (80 x 16 dense, the card's plain route against the
-     CPU at phase 10b's gate, then one bf16 train step).
+     CPU at phase 10b's gate, then one bf16 train step);
+ 24. kabsch_finetune: the Kabsch coordinate loss from the flagship's
+     weights (``Trainer.init_state(params=...)``, bf16, batch 64 of its
+     train split, dense K1): one train step through the full 1000-step
+     reverse chain under autograd (each denoiser call checkpointed: K1
+     5 + 1001 x 5 x 2 = 10,015 times, the plain route never; loss and
+     ``grad_norm`` finite; ms, peak memory), three steps at 250 strided
+     steps, one float32 250-step step at batch 2 on the card against the
+     CPU from the same draws (loss and every gradient leaf), and the
+     250-step step on kNN-15 through K2;
+ 25. polymorph_pipeline: the SiO2 polymorph corpus (46 samples) through
+     the port's CASTEP and OptaDOS readers, ``build_dataset`` at 2NN and
+     1NN with the native shell builder compiled here (g++) against the
+     numpy route, the dataset files, the flagship generating 5 samples for
+     each 2NN condition at 1000 steps through K1 (accepted of attempted,
+     the Si-O bond median against the corpus's within 0.1 A), and
+     ``template_match`` with the histogram descriptor on the card against
+     the CPU (the same rankings; descriptors equal but at bin-edge ties).
 
 Any failed check raises, and the script exits non-zero without its result
 line. The last lines are the kernel table (with each kernel's bound: its
@@ -167,6 +184,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -267,6 +285,19 @@ NETWORK_ATOMS = (448, 512)    # the 512-atom recipe's train cells
 NETWORK_B = 32
 NETWORK_STEPS = 3             # timed train steps of each arm
 RBF_BATCH = {True: 32, False: 8}   # the rbf arm's batch, with / without remat
+KABSCH_B = 64              # the flagship recipe's batch
+# strided steps of the shorter Kabsch chains: one chain that leaves the
+# finite range makes the loss NaN. Replayed from this phase's own batch and
+# draws (tests/kabsch_chain_replay.py), 31 of 64 chains leave it at 50
+# uniform steps and 1 of 64 at 100 (draw 2 of 3), in float32 on the CPU as
+# in bf16 on the card; the JAX package's chains do so too at 50 and 100
+# (tests/jax_finite_chains.py). At 250 all stay finite.
+KABSCH_SHORT = 250
+KABSCH_SHORT_STEPS = 3
+KABSCH_F32_B = 2           # graphs of the float32 card-against-CPU step
+KABSCH_F32_LOSS_RTOL = 1e-3
+# the largest worst-leaf relative L2 seen was 6.2e-4 (batch 4)
+KABSCH_F32_GRAD_REL = 2e-2
 
 
 def log(record: dict) -> None:
@@ -2649,6 +2680,295 @@ def phase_strided_scores(device, card: str) -> int:
     return launches
 
 
+class CpuDraws:
+    """A training noise source whose draws are ``TrainNoise(seed, "cpu")``'s,
+    moved to ``device``: the same draws on the card and on the CPU."""
+
+    def __init__(self, seed, device):
+        from diffusion_model_tpu_torch.train.loss import TrainNoise
+
+        self.src, self.device = TrainNoise(seed, "cpu"), device
+
+    def randint(self, stream, low, high, shape):
+        return self.src.randint(stream, low, high, shape).to(self.device)
+
+    def normal(self, stream, shape):
+        return self.src.normal(stream, shape).to(self.device)
+
+    def bernoulli(self, stream, p, shape):
+        return self.src.bernoulli(stream, p, shape).to(self.device)
+
+
+def kabsch_step(cfg, params, batch, noise, device) -> dict:
+    """One ``Trainer.train_step`` with the Kabsch loss from the flagship's
+    weights: loss, ``grad_norm``, ms (CUDA events), peak memory and the
+    launches of exactly that step, with the trainer and its gradients."""
+    import torch
+
+    from diffusion_model_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(cfg, device=device)
+    state = trainer.init_state(cfg.seed, params=params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    reset_counts()
+    start.record()
+    state, m = trainer.train_step(state, noise, batch)
+    stop.record()
+    counts = read_counts()
+    rec = {"kabsch_loss_steps": cfg.kabsch_loss_steps
+           or cfg.num_diffusion_timestep,
+           "neighbor_k": cfg.neighbor_k, "compute_dtype": cfg.compute_dtype,
+           "batch": int(batch.mask.shape[0]), "loss": float(m["loss"]),
+           "grad_norm": float(m["grad_norm"]),
+           "ms": start.elapsed_time(stop), "launches": counts,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(
+               device),
+           "memory_before_step_bytes": base}
+    if not (math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"])):
+        raise AssertionError(f"the Kabsch step is not finite: {rec}")
+    steps = rec["kabsch_loss_steps"]
+    kernel = "egcl_knn" if cfg.neighbor_k else "egcl_pair"
+    # the eps loss's forward, then each of the chain's steps + 1 calls
+    # twice: the forward and the checkpoint's recompute
+    want = {"egcl_pair": 0, "egcl_knn": 0, "plain_edge_calls": 0,
+            kernel: cfg.L * (1 + 2 * (steps + 1))}
+    if counts != want:
+        raise AssertionError(f"Kabsch step launches {counts}, want {want}")
+    return rec
+
+
+def phase_kabsch_finetune(device, card: str) -> dict:
+    """The Kabsch coordinate loss on the card from the flagship's trained
+    weights (``artifacts/q_predef_r5.npz``: L=5, 1024 / 256, n_max 16, bf16,
+    RAdamScheduleFree) loaded through ``Trainer.init_state(params=...)``, on
+    ``KABSCH_B`` graphs of its train split, dense route (K1): one step over
+    the full T=1000 chain (``kabsch_loss_steps`` 0), ``KABSCH_SHORT_STEPS``
+    steps at ``KABSCH_SHORT`` strided steps, one float32 step of as many on
+    the card against the CPU from the same draws (``KABSCH_F32_B`` graphs),
+    and the same step on kNN-15 through K2."""
+    import numpy as np
+    import torch
+
+    from diffusion_model_tpu_torch.data.batch import collate
+    from diffusion_model_tpu_torch.data.split import (
+        device_batch_iterator,
+        split_dataset,
+    )
+    from diffusion_model_tpu_torch.train.checkpoint import (
+        load_config_npz,
+        load_params_npz,
+    )
+    from diffusion_model_tpu_torch.train.loss import TrainNoise
+    from diffusion_model_tpu_torch.train.trainer import Trainer
+
+    base = load_config_npz(str(SNAPSHOT)).replace(kabsch_loss=True)
+    params = load_params_npz(str(SNAPSHOT))
+    train = split_dataset(flagship_graphs(base), base.seed)[0]
+    batch = next(device_batch_iterator(collate(train, base.n_max, device),
+                                       KABSCH_B, seed=0))
+    t0 = time.perf_counter()
+    full = kabsch_step(base.replace(kabsch_loss_steps=0), params, batch,
+                       TrainNoise((base.seed, 15, 0), device), device)
+    full["wall_s"] = time.perf_counter() - t0
+    short_cfg = base.replace(kabsch_loss_steps=KABSCH_SHORT)
+    short = [kabsch_step(short_cfg, params, batch,
+                         TrainNoise((base.seed, 15, i + 1), device), device)
+             for i in range(KABSCH_SHORT_STEPS)]
+
+    # float32, the card against the CPU from the same draws and weights
+    f32 = short_cfg.replace(compute_dtype="float32")
+    sides = []
+    for dev in (device, torch.device("cpu")):
+        trainer = Trainer(f32, device=dev)
+        state = trainer.init_state(f32.seed, params=params)
+        small = collate(train[:KABSCH_F32_B], base.n_max, dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        loss, _, _, grads = trainer.loss_and_grads(
+            state, CpuDraws((base.seed, 16, 0), dev), small)
+        counts = read_counts()
+        sides.append((float(loss), grads, time.perf_counter() - t0, counts))
+    (loss_card, g_card, card_s, counts), (loss_cpu, g_cpu, cpu_s, _) = sides
+    want = {"egcl_pair": base.L * (1 + 2 * (KABSCH_SHORT + 1)),
+            "egcl_knn": 0, "plain_edge_calls": 0}
+    if counts != want:
+        raise AssertionError(f"float32 Kabsch launches {counts}, want "
+                             f"{want}")
+    leaf_gap = {k: rel_l2(g_card[k].cpu(), g)
+                for k, g in g_cpu.items() if float(g.norm()) > 0}
+    worst = max(leaf_gap, key=leaf_gap.get)
+    parity = {"batch": KABSCH_F32_B, "loss_card": loss_card,
+              "loss_cpu": loss_cpu,
+              "loss_rel_gap": abs(loss_card - loss_cpu) / abs(loss_cpu),
+              "largest_leaf_rel_l2": leaf_gap[worst], "largest_leaf": worst,
+              "card_s": card_s, "cpu_s": cpu_s, "launches": counts}
+    if not (math.isfinite(loss_card)
+            and parity["loss_rel_gap"] <= KABSCH_F32_LOSS_RTOL
+            and parity["largest_leaf_rel_l2"] <= KABSCH_F32_GRAD_REL):
+        raise AssertionError(f"the float32 Kabsch step on the card parts "
+                             f"from the CPU's: {parity}")
+
+    knn = kabsch_step(short_cfg.replace(neighbor_k=SERVED_K), params, batch,
+                      TrainNoise((base.seed, 15, 9), device), device)
+    rec = {"phase": "kabsch_finetune", "card": card, "full_chain": full,
+           "strided": short, "float32_strided": parity,
+           "knn_strided": knn,
+           "launches": {
+               "egcl_pair": full["launches"]["egcl_pair"]
+               + sum(s["launches"]["egcl_pair"] for s in short)
+               + counts["egcl_pair"],
+               "egcl_knn": knn["launches"]["egcl_knn"]}}
+    log(rec)
+    return rec
+
+
+def phase_polymorph_pipeline(device, card: str) -> dict:
+    """The real-data path on the card's machine: the SiO2 polymorph corpus
+    (``write_corpus(seed=0)``, 46 samples), ``build_dataset`` at 2NN and 1NN
+    with the native library built here from ``native/graphbuild.cpp`` (a
+    fresh build directory) against the numpy route (the same sites in the
+    same order, positions to 1e-6 A), the flagship generating
+    ``GEN_PER_CONDITION`` samples for each 2NN condition at 1000 steps
+    through K1 (accepted of attempted; the Si-O bond median against the
+    corpus's), and ``template_match`` with the histogram descriptor on the
+    card against the CPU."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from diffusion_model_tpu_torch import api
+    from diffusion_model_tpu_torch.data import native, polymorphs
+    from diffusion_model_tpu_torch.data.io import load_dataset, save_dataset
+    from diffusion_model_tpu_torch.data.shells import build_dataset
+    from diffusion_model_tpu_torch.evals import template
+    from diffusion_model_tpu_torch.train.checkpoint import (
+        load_config_npz,
+        load_params_npz,
+    )
+
+    rec = {"phase": "polymorph_pipeline", "card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = os.path.join(tmp, "corpus")
+        manifest = polymorphs.write_corpus(corpus, seed=0)
+        if len(manifest) != 46:
+            raise AssertionError(f"corpus of {len(manifest)} samples, "
+                                 "want 46")
+        # built here, in a fresh directory, not read from a checkout's cache
+        build_dir = Path(tmp) / "native"
+        t0 = time.perf_counter()
+        native.require_library(build_dir=build_dir)
+        rec["native_build_s"] = time.perf_counter() - t0
+        rec["native_library"] = native.library_path(build_dir).name
+        routes = {}
+        for nn_range in ("2NN", "1NN"):
+            nat = build_dataset(corpus, nn_range, use_native=True)
+            ref = build_dataset(corpus, nn_range, use_native=False)
+            gap = 0.0
+            for a, b in zip(nat, ref):
+                for k in ("species", "spectrum", "exo"):
+                    if not np.array_equal(a[k], b[k]) or a["id"] != b["id"]:
+                        raise AssertionError(
+                            f"{nn_range} {b['id']}: the native route's "
+                            f"{k} differs from numpy's")
+                gap = max(gap, float(np.abs(a["pos"] - b["pos"]).max()))
+            if len(nat) != len(ref) or gap > 1e-6:
+                raise AssertionError(f"{nn_range}: native and numpy shells "
+                                     f"part ({len(nat)}, {len(ref)}, {gap})")
+            routes[nn_range] = {"graphs": len(nat), "atoms": sorted(
+                {len(g["pos"]) for g in nat}), "max_pos_gap_A": gap}
+            path = os.path.join(tmp, f"{nn_range}.npz")
+            save_dataset(ref, path)
+            routes[nn_range]["reloaded"] = len(load_dataset(path))
+        rec["shells"] = routes
+        graphs = load_dataset(os.path.join(tmp, "2NN.npz"))
+
+    cfg = load_config_npz(str(SNAPSHOT))
+    params = load_params_npz(str(SNAPSHOT))
+    graphs = api.prepare_dataset(graphs, cfg)
+    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    t0 = time.perf_counter()
+    reset_counts()
+    out = api.generate(cfg, params, graphs, generator, device=device)
+    counts = read_counts()
+    gen_s = time.perf_counter() - t0
+    chunks = -(-len(graphs) // GEN_BATCH)
+    want = {"egcl_pair": chunks * 1001 * cfg.L, "egcl_knn": 0,
+            "plain_edge_calls": 0}
+    if counts != want:
+        raise AssertionError(f"polymorph generation launches {counts}, "
+                             f"want {want}")
+    keep = out["accepted"]
+    if not keep.any():
+        raise AssertionError("no accepted polymorph sample")
+    si_o = median_si_o(out["generated_pos"][keep],
+                       out["generated_species"][keep], out["mask"][keep])
+    si_o_corpus = median_si_o(out["original_pos"], out["original_species"],
+                              out["mask"])
+    rec["generate"] = {
+        "conditions": len(graphs), "samples": int(len(keep)),
+        "finite": int(out["finite"].sum()), "accepted": int(keep.sum()),
+        "launches": counts, "wall_s": gen_s,
+        "si_o_median_A": si_o, "si_o_median_corpus_A": si_o_corpus}
+    if abs(si_o - si_o_corpus) > SI_O_TOLERANCE:
+        raise AssertionError(f"generated Si-O median {si_o} A against the "
+                             f"corpus's {si_o_corpus} A")
+
+    match = []
+    for dev in (device, torch.device("cpu")):
+        t0 = time.perf_counter()
+        match.append((template.template_match(graphs, graphs,
+                                              descriptor="histogram",
+                                              device=dev),
+                      time.perf_counter() - t0))
+    (card_match, card_s), (cpu_match, cpu_s) = match
+    if [[list(d) for d in v] for v in card_match.values()] != \
+            [[list(d) for d in v] for v in cpu_match.values()]:
+        raise AssertionError("template_match ranks differently on the card")
+    desc_gap, ties = 0.0, 0
+    for g in graphs:
+        args = [torch.as_tensor(g[k]) for k in ("pos", "species")]
+        d_cpu = template.local_descriptor(*args).numpy()
+        d_card = template.local_descriptor(
+            *(a.to(device) for a in args)).cpu().numpy()
+        desc_gap = max(desc_gap, float(np.abs(d_card[:64] - d_cpu[:64]).max()
+                                       / max(np.abs(d_cpu).max(), 1e-30)))
+        if not np.array_equal(d_card[64:], d_cpu[64:]):
+            ties += 1
+            if not angle_on_bin_edge(g["pos"]):
+                raise AssertionError(f"{g['id']}: the angle histogram on "
+                                     "the card differs with no bin-edge tie")
+    sim_gap = max(abs(a[1] - b[1])
+                  for t in cpu_match
+                  for x, y in zip(card_match[t], cpu_match[t])
+                  for a, b in zip(x.values(), y.values()))
+    rec["template_match"] = {"targets": len(graphs), "card_s": card_s,
+                             "cpu_s": cpu_s, "radial_rel_gap": desc_gap,
+                             "histogram_ties": ties,
+                             "similarity_gap": sim_gap}
+    if desc_gap > 1e-5:
+        raise AssertionError(f"descriptors part on the card: {rec}")
+    log(rec)
+    return rec
+
+
+def angle_on_bin_edge(pos, tol_deg: float = 1e-3) -> bool:
+    """Whether an angle at exO between neighbours within 2.5 A lies within
+    ``tol_deg`` of a 10-degree histogram bin edge."""
+    import numpy as np
+
+    rel = np.asarray(pos, np.float64)[1:] - np.asarray(pos, np.float64)[0]
+    d = np.linalg.norm(rel, axis=-1)
+    near = rel[(d < 2.5) & (d > 0)]
+    unit = near / np.linalg.norm(near, axis=-1, keepdims=True)
+    ang = np.degrees(np.arccos(np.clip(unit @ unit.T, -1, 1)))
+    return bool((np.abs(ang - 10.0 * np.round(ang / 10.0)) < tol_deg).any())
+
+
 def edge_flops(f1: int, fm: int, h: int = 0) -> int:
     """Tensor-core FLOPs of one live edge: both second-layer products, and
     for K2 the j-side first layer (4 H F1)."""
@@ -2959,6 +3279,10 @@ def main() -> int:
                            card)
     variants = phase_variants(cfg, params, device, card)
     phase_network_recipe(cfg, params, device, card)
+    kabsch = kernels_only("kabsch_finetune", phase_kabsch_finetune, device,
+                          card)
+    polymorph = kernels_only("polymorph_pipeline", phase_polymorph_pipeline,
+                             device, card)
     log({"phase": "flagship_routes", "plain_edge_calls": plain_calls,
          "egcl_pair_launches_served": pair_launches,
          "egcl_knn_launches_served": knn_launches,
@@ -2980,6 +3304,9 @@ def main() -> int:
          "heads_launches": heads["egcl_pair"],
          "strided_launches": strided,
          "variants_launches": variants["egcl_pair"],
+         "kabsch_launches": kabsch["launches"]["egcl_pair"],
+         "polymorph_launches": polymorph["generate"]["launches"][
+             "egcl_pair"],
          "train_grad": grads["egcl_pair_64x16_bfloat16"]},
         {"name": "egcl_knn", "route": "cuda",
          "source": "diffusion_model_tpu_torch/csrc/egcl_knn.cu",
@@ -2988,6 +3315,7 @@ def main() -> int:
          "train_launches": knn_train["launches"]["egcl_knn"],
          "heads_launches": heads["egcl_knn"],
          "variants_launches": variants["egcl_knn"],
+         "kabsch_launches": kabsch["launches"]["egcl_knn"],
          "train_grad": grads["egcl_knn_64x16_k15_bfloat16"]},
         *probes,
     ]})

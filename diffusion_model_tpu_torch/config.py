@@ -9,14 +9,15 @@ a field here, so a config round-trips. What the port does with each:
   update; the radial-basis edge features ``edge_rbf`` / ``edge_rbf_rmax``
   and the global radius feature; ``compat_scalar_norm`` on the dense
   topology; the predefined or the learned noise schedule; the optimizers,
-  the loss's levers, the initialisers, ``remat_egcl``, ``checkpoint_every``
-  and ``debug_nans``);
+  the loss's levers and the Kabsch coordinate loss (``kabsch_loss``,
+  ``kabsch_loss_steps``, ``kabsch_loss_weight``), the initialisers,
+  ``remat_egcl``, ``checkpoint_every`` and ``debug_nans``);
 - ``Config`` raises ``NotImplementedError``, naming the field, for a value
   of ``_SUPPORTED`` whose code path the port does not have yet;
 - the fields of ``JAX_ONLY`` no code of the port reads: the table says for
   each why any value is refused or cannot change a result;
-- ``train.Trainer`` refuses the training settings it has no path for
-  (``kabsch_loss``, a mesh).
+- ``train.Trainer`` refuses the training setting it has no path for (a
+  mesh).
 
 ``from_dict`` ignores keys that are no field (a run's extras). No yaml:
 PyTorch does not depend on PyYAML, so a module-level ``import yaml`` would
@@ -44,10 +45,6 @@ _SUPPORTED = (
 JAX_ONLY = {
     "x_size": ("refused", "positions are 3-D throughout the port"),
     "d_size": ("refused", "the edge MLPs take one squared-distance feature"),
-    "kabsch_loss_steps": ("inert", "read only by the Kabsch loss, which "
-                          "train.Trainer refuses (kabsch_loss)"),
-    "kabsch_loss_weight": ("inert", "read only by the Kabsch loss, which "
-                           "train.Trainer refuses (kabsch_loss)"),
     "latent_dim": ("inert", "read only with spectrum_to_latent, which "
                    "_SUPPORTED refuses"),
     "mesh_axis_names": ("inert", "read only with a mesh_shape, which "

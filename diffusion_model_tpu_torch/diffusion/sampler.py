@@ -9,6 +9,15 @@ positions, initial species channel, then per step the position noise and
 the species noise, then the same two for the epilogue (none when the chain
 is deterministic). A caller can therefore replay another implementation's
 draws, which is how the tests hold whole chains against the JAX package.
+
+``sample`` runs the chain under ``no_grad``; ``sample_with_grad`` runs the
+same loop under autograd (the Kabsch coordinate loss differentiates through
+it), each denoiser call through ``torch.utils.checkpoint`` so that the chain
+keeps only every call's inputs and recomputes its activations in the
+backward, as the JAX package's ``remat`` around ``model.apply``. The draws
+are taken outside the checkpointed calls: a recompute restores the global
+generators, not an explicit ``torch.Generator``, so a draw inside would
+differ between the forward and the recompute.
 """
 
 from __future__ import annotations
@@ -18,6 +27,7 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from diffusion_model_tpu_torch.config import Config
 from diffusion_model_tpu_torch.data.batch import GraphBatch
@@ -121,8 +131,10 @@ class ReverseChain:
         """(eps_x, eps_h) at grid index ``t``."""
         cfg, cond, mask = self.cfg, self.cond, self.mask
         t_norm = self.m3 * self.t_norm_table[t]
-        edges = (knn_edges(pos, mask, cfg.neighbor_k) if cfg.neighbor_k
-                 else None)
+        # integer lists: under autograd the distances would only be kept
+        # for a backward that gives indices nothing
+        edges = (knn_edges(pos.detach(), mask, cfg.neighbor_k)
+                 if cfg.neighbor_k else None)
         h_in = self.scale * h
         eps_x, eps_h = self.denoise_fn(h_in, pos, cond.spectrum, cond.exo,
                                        t_norm, mask, edges)
@@ -182,6 +194,40 @@ class ReverseChain:
         return pos, h, species
 
 
+def run_chain(chain: ReverseChain, noise: NoiseSource,
+              return_trajectory: bool = False) -> SampleResult:
+    """The reverse chain from pure noise to the t=0 epilogue, the draws
+    taken from ``noise`` in the fixed order; autograd records it where grad
+    mode is on."""
+    cfg, cond = chain.cfg, chain.cond
+    steps = chain.steps
+    mask = cond.mask
+    b, n = mask.shape
+
+    pos = remove_mean(noise((b, n, 3)), mask)
+    h = (noise((b, n, cfg.atom_type_size)) * chain.m3 if cfg.diffuse_species
+         else cond.species)
+
+    frames = []
+    for t in range(steps, 0, -1):
+        if return_trajectory and (steps - t) % cfg.snapshot_every == 0:
+            frames.append((pos, h))
+        pos, h = chain.step(pos, h, t, *chain.draws(noise, pos, h))
+    pos, h, species = chain.epilogue(pos, h, *chain.draws(noise, pos, h))
+
+    flat_pos, flat_h = pos.detach().reshape(b, -1), h.detach().reshape(b, -1)
+    finite = (torch.isfinite(flat_pos).all(dim=-1)
+              & torch.isfinite(flat_h).all(dim=-1))
+    # coordinates above 1000 are rejected (signed comparison)
+    accepted = finite & ~(flat_pos > 1000.0).any(dim=-1)
+    trajectory = None
+    if return_trajectory:
+        trajectory = (torch.stack([f[0] for f in frames]),
+                      torch.stack([f[1] for f in frames]))
+    return SampleResult(pos=pos, species=species, h=h, finite=finite,
+                        accepted=accepted, trajectory=trajectory)
+
+
 @torch.no_grad()
 def sample(denoise_fn: Callable, schedule: Schedule, cfg: Config,
            generator: Optional[torch.Generator], cond: GraphBatch,
@@ -205,38 +251,26 @@ def sample(denoise_fn: Callable, schedule: Schedule, cfg: Config,
         ``cfg.snapshot_every``, ... of the chain (``SampleResult.trajectory``);
         the draws and the result are the same either way.
     """
-    device = cond.device
     if noise is None:
+        device = cond.device
+
         def noise(shape):
             return torch.randn(tuple(shape), generator=generator,
                                device=device)
-    chain = ReverseChain(denoise_fn, schedule, cfg, cond)
-    steps = chain.steps
-    mask = cond.mask
-    b, n = mask.shape
+    return run_chain(ReverseChain(denoise_fn, schedule, cfg, cond), noise,
+                     return_trajectory)
 
-    pos = remove_mean(noise((b, n, 3)), mask)
-    h = (noise((b, n, cfg.atom_type_size)) * chain.m3 if cfg.diffuse_species
-         else cond.species)
 
-    frames = []
-    for t in range(steps, 0, -1):
-        if return_trajectory and (steps - t) % cfg.snapshot_every == 0:
-            frames.append((pos, h))
-        pos, h = chain.step(pos, h, t, *chain.draws(noise, pos, h))
-    pos, h, species = chain.epilogue(pos, h, *chain.draws(noise, pos, h))
+def sample_with_grad(denoise_fn: Callable, schedule: Schedule, cfg: Config,
+                     cond: GraphBatch, noise: NoiseSource) -> SampleResult:
+    """``sample`` under autograd, with the draws from ``noise``: each
+    denoiser call is checkpointed (non-reentrant, so that
+    ``torch.autograd.grad`` works through it) and recomputed in the
+    backward; a learned ``schedule`` carries its gradient too."""
+    def call(*args):
+        return checkpoint(denoise_fn, *args, use_reentrant=False)
 
-    flat_pos, flat_h = pos.reshape(b, -1), h.reshape(b, -1)
-    finite = (torch.isfinite(flat_pos).all(dim=-1)
-              & torch.isfinite(flat_h).all(dim=-1))
-    # coordinates above 1000 are rejected (signed comparison)
-    accepted = finite & ~(flat_pos > 1000.0).any(dim=-1)
-    trajectory = None
-    if return_trajectory:
-        trajectory = (torch.stack([f[0] for f in frames]),
-                      torch.stack([f[1] for f in frames]))
-    return SampleResult(pos=pos, species=species, h=h, finite=finite,
-                        accepted=accepted, trajectory=trajectory)
+    return run_chain(ReverseChain(call, schedule, cfg, cond), noise)
 
 
 def sample_with_retry(denoise_fn: Callable, schedule: Schedule, cfg: Config,

@@ -38,7 +38,15 @@ def kabsch(p: torch.Tensor, q: torch.Tensor,
         p_c = p_c * m
         q_c = q_c * m
     h = _mm(p_c.transpose(-1, -2), q_c)
-    u, _, vt = torch.linalg.svd(h, full_matrices=False)
+    # a set that is not finite aligns to NaN, as in the JAX package and on
+    # the card: the CPU's SVD raises on such a matrix, so it gets zeros and
+    # its factors are NaN
+    bad = ~torch.isfinite(h).all(dim=-1, keepdim=True).all(dim=-2,
+                                                            keepdim=True)
+    u, _, vt = torch.linalg.svd(torch.where(bad, torch.zeros_like(h), h),
+                                full_matrices=False)
+    u = torch.where(bad, torch.full_like(u, float("nan")), u)
+    vt = torch.where(bad, torch.full_like(vt, float("nan")), vt)
     v = vt.transpose(-1, -2)
     ut = u.transpose(-1, -2)
     d = torch.sign(torch.linalg.det(_mm(v, ut)))

@@ -76,3 +76,24 @@ def polynomial_alpha_schedule(timesteps: int, s: float = 1e-4,
     alphas2 = clip_noise_schedule(alphas2, clip_value=0.001)
     precision = 1.0 - 2.0 * s
     return precision * alphas2 + s
+
+
+def beta_schedule(kind: str, initial_beta: float, final_beta: float,
+                  timesteps: int, device=None) -> torch.Tensor:
+    """Legacy DDPM-style beta schedules over t = 0..T (length T+1), float32:
+    "sigmoid" (a sigmoid over ``linspace(-6, 6)``, scaled into
+    ``[initial_beta, final_beta]``) or "linear"."""
+    if kind == "sigmoid":
+        base = torch.sigmoid(linspace_f32(-6.0, 6.0, timesteps + 1,
+                                          device=device))
+        return base * (final_beta - initial_beta) + initial_beta
+    if kind == "linear":
+        return linspace_f32(initial_beta, final_beta, timesteps + 1,
+                            device=device)
+    raise ValueError(f"unknown beta schedule {kind!r}")
+
+
+def ddpm_alpha_bar(betas: torch.Tensor) -> torch.Tensor:
+    """Cumulative product ``alpha_bar_t = prod(1 - beta)``, rounded as
+    ``jnp.cumprod``."""
+    return _cumprod_in_jax_order(1.0 - betas)

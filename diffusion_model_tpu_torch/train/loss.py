@@ -35,7 +35,8 @@ class TrainNoise:
     each stream, seeded from ``seed`` (an int or a sequence of ints) and the
     stream's place in ``STREAMS`` through ``numpy.random.SeedSequence``."""
 
-    STREAMS = ("t", "t_band", "t_sel", "pos", "h", "drop")
+    # appended, never inserted: a stream's seed is its place here
+    STREAMS = ("t", "t_band", "t_sel", "pos", "h", "drop", "kabsch")
 
     def __init__(self, seed, device):
         self.device = torch.device(device)

@@ -12,7 +12,11 @@ kernel (K2), each paired with the autograd of its plain statement
 (``ops.edge_grad``), as the JAX package pairs its Pallas kernels in a
 ``custom_vjp``. On the CPU every step is plain PyTorch. A learned schedule's
 gamma network trains through the loss jointly with the denoiser, with the
-VDM boundary terms (``_gamma_boundary``).
+VDM boundary terms (``_gamma_boundary``). With ``kabsch_loss`` a train step
+also runs the reverse chain under autograd (``diffusion.sampler.
+sample_with_grad``, each denoiser call checkpointed) and adds the Kabsch RMSD
+of its structures against the batch's (``_kabsch_loss``); the eval step
+leaves that term out, as the JAX package's does.
 
 Random draws come from a noise source (``train.loss.TrainNoise``); the loss
 of an epoch is summed on the device and read once at its end.
@@ -39,6 +43,7 @@ from diffusion_model_tpu_torch.diffusion.process import (
     predefined_schedule,
     x_param_is_x0,
 )
+from diffusion_model_tpu_torch.diffusion.sampler import sample_with_grad
 from diffusion_model_tpu_torch.nn.denoiser import DiffusionDenoiser
 from diffusion_model_tpu_torch.nn.gamma import (
     GammaNetwork,
@@ -47,6 +52,7 @@ from diffusion_model_tpu_torch.nn.gamma import (
 from diffusion_model_tpu_torch.ops.edges import knn_edges
 from diffusion_model_tpu_torch.ops.egcl_knn import egcl_knn_edges
 from diffusion_model_tpu_torch.ops.egcl_pair import egcl_pair_edges
+from diffusion_model_tpu_torch.ops.kabsch import kabsch_rmsd
 from diffusion_model_tpu_torch.train import optim
 from diffusion_model_tpu_torch.train.checkpoint import (
     flax_from_state_dict,
@@ -63,8 +69,6 @@ from diffusion_model_tpu_torch.train.loss import (
 # Training paths of the JAX package that the port does not have, and the
 # ROADMAP.md queue 1 item that holds each.
 _NOT_PORTED = (
-    ("kabsch_loss", "the Kabsch coordinate loss (ops/kabsch.py and a "
-     "differentiable sampler), ROADMAP.md queue 1 item 5"),
     ("mesh_shape", "data-parallel training on a mesh (DDP, with the ring), "
      "ROADMAP.md queue 1 item 9"),
 )
@@ -233,9 +237,11 @@ class Trainer:
         return learned_schedule(gamma, self.cfg.num_diffusion_timestep)
 
     # -- loss ----------------------------------------------------------
-    def _loss(self, model, gamma, noise, batch: GraphBatch):
+    def _loss(self, model, gamma, noise, batch: GraphBatch,
+              kabsch: bool = True):
         """(loss, sum_sq, num_nodes) of ``model`` on ``batch`` noised by
-        ``noise``'s draws."""
+        ``noise``'s draws; the Kabsch term where ``cfg.kabsch_loss`` and
+        ``kabsch``."""
         cfg = self.cfg
         schedule = self.schedule_for(gamma)
         pos_t, h_t, t, eps_pos, eps_h = diffuse_batch(schedule, cfg, noise,
@@ -261,6 +267,9 @@ class Trainer:
         loss, sum_sq, num_nodes = epsilon_loss(
             eps_x_pred, eps_h_pred, eps_pos, eps_h, batch.mask,
             include_h=cfg.diffuse_species, weights=t_band_weights(cfg, t))
+        if cfg.kabsch_loss and kabsch:
+            loss = loss + cfg.kabsch_loss_weight * self._kabsch_loss(
+                model, noise, batch, schedule)
         if gamma is not None and cfg.gamma_boundary_weight > 0:
             loss = loss + cfg.gamma_boundary_weight * self._gamma_boundary(
                 schedule, batch)
@@ -292,6 +301,35 @@ class Trainer:
         num_graphs = (batch.mask > 0).any(dim=-1).to(
             x2_sum.dtype).sum().clamp_min(1.0)
         return (rec + prior) * n_dims / num_graphs
+
+    def _kabsch_loss(self, model, noise, batch: GraphBatch,
+                     schedule: Schedule):
+        """The mean Kabsch RMSD, over the real graphs, between the
+        structures of a reverse chain run under autograd (the draws from
+        the ``"kabsch"`` stream) and the batch's own. The chain takes
+        ``kabsch_loss_steps`` strided steps (the sampler's own uniform
+        grid; every step at 0). A zero-mask padded row would hand the SVD a
+        zero covariance, whose gradient is not finite: such rows are scored
+        on a fixed well-conditioned template instead, and left out of the
+        mean."""
+        cfg = self.cfg
+        steps = cfg.kabsch_loss_steps or cfg.num_diffusion_timestep
+        sub_cfg = cfg.replace(sample_steps=steps, sample_grid="uniform")
+        res = sample_with_grad(model, schedule, sub_cfg, batch,
+                               lambda shape: noise.normal("kabsch", shape))
+        real = (batch.mask > 0).any(dim=-1)
+        t = torch.arange(batch.pos.shape[1], dtype=batch.pos.dtype,
+                         device=batch.device)
+        template = torch.stack([torch.sin(t), torch.cos(1.3 * t),
+                                torch.sin(2.7 * t + 1.0)], dim=-1)
+        r3 = real[:, None, None]
+        gen_pos = torch.where(r3, res.pos, 1.5 * template + 1.0)
+        ref_pos = torch.where(r3, batch.pos, template)
+        mask_safe = torch.where(real[:, None], batch.mask,
+                                torch.ones_like(batch.mask))
+        rmsd = kabsch_rmsd(gen_pos, ref_pos, mask_safe)
+        total = torch.where(real, rmsd, torch.zeros_like(rmsd)).sum()
+        return total / real.to(rmsd.dtype).sum().clamp_min(1.0)
 
     # -- steps ---------------------------------------------------------
     def loss_and_grads(self, state: TrainState, noise, batch: GraphBatch):
@@ -355,13 +393,16 @@ class Trainer:
 
     @torch.no_grad()
     def _eval_batch(self, modules, noise, batch) -> dict:
-        _, sum_sq, num_nodes = self._loss(*modules, noise, batch)
+        # the eval step reads sum_sq alone: no reverse chain for the
+        # Kabsch term it would throw away
+        _, sum_sq, num_nodes = self._loss(*modules, noise, batch,
+                                          kabsch=False)
         return {"sum_sq": sum_sq, "num_nodes": num_nodes}
 
     def ring_train_step_fn(self, *args, **kwargs):
         raise NotImplementedError(
             "ring (node-sharded) training is not ported: ROADMAP.md queue 1 "
-            "item 5")
+            "item 9")
 
     # -- epochs --------------------------------------------------------
     def train_epoch(self, state: TrainState, noise,

@@ -209,8 +209,7 @@ def test_every_jax_field_is_a_port_field_or_in_the_table():
     # the fields no code of the port reads are each in the table, with
     # what the port does with them and why
     assert set(port_config.JAX_ONLY) == {
-        "x_size", "d_size", "kabsch_loss_steps", "kabsch_loss_weight",
-        "latent_dim", "use_pallas", "mesh_axis_names"}
+        "x_size", "d_size", "latent_dim", "use_pallas", "mesh_axis_names"}
     for name, (how, why) in port_config.JAX_ONLY.items():
         assert how in ("refused", "inert") and why, name
     assert not set(HONOURED_SINCE_F6) & set(port_config.JAX_ONLY)

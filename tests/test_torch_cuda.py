@@ -718,3 +718,49 @@ def test_remat_gradients_through_k2_equal_bit_for_bit(cuda_device, dtype):
     for g, r in zip(grads, r_grads):
         assert torch.equal(g, r)
     assert any(bool(g.abs().sum() > 0) for g in grads)
+
+
+# -- the Kabsch loss: a reverse chain under autograd through K1 ------------
+
+@pytest.mark.cuda
+def test_kabsch_step_through_k1_matches_the_plain_route(cuda_device):
+    """One float32 ``loss_and_grads`` with ``kabsch_loss`` (5 strided
+    steps) through K1 against the same step with the plain statement as
+    the edge function, on the same draws: K1 launches once a layer for the
+    eps loss and twice a layer for each of the chain's 6 checkpointed calls
+    (the forward, then the recompute)."""
+    from diffusion_model_tpu_torch.config import Config
+    from diffusion_model_tpu_torch.data.batch import collate
+    from diffusion_model_tpu_torch.data.synthetic import (
+        synthetic_sio2_dataset,
+    )
+    from diffusion_model_tpu_torch.train.loss import TrainNoise
+    from diffusion_model_tpu_torch.train.trainer import Trainer
+
+    cfg = Config(n_max=10, L=3, m_hidden_size=64, h_hidden_size=32,
+                 x_hidden_size=64, m_size=64, spectrum_size=32,
+                 compressed_spectrum_size=8, compressor_hidden_dim=(16,),
+                 num_diffusion_timestep=50, batch_size=4, lr=1e-3,
+                 optimizer="Adam", kabsch_loss=True, kabsch_loss_steps=5)
+    graphs = synthetic_sio2_dataset(0, 4, cfg.n_max,
+                                    spectrum_size=cfg.spectrum_size)
+    batch = collate(graphs, cfg.n_max, cuda_device)
+    runs = []
+    for edge_fn in (egcl_pair.egcl_pair_edges,
+                    egcl_pair.egcl_pair_edges_reference):
+        trainer = Trainer(cfg, device=cuda_device, edge_fn=edge_fn)
+        state = trainer.init_state(3)
+        before = egcl_pair.egcl_pair_launches
+        loss, _, _, grads = trainer.loss_and_grads(
+            state, TrainNoise(7, cuda_device), batch)
+        torch.cuda.synchronize()
+        runs.append((loss, grads, egcl_pair.egcl_pair_launches - before))
+    (loss, grads, launches), (p_loss, p_grads, p_launches) = runs
+    assert (launches, p_launches) == (cfg.L * (1 + 2 * 6), 0)
+    assert bool(torch.isfinite(loss))
+    torch.testing.assert_close(loss, p_loss, rtol=1e-4, atol=0)
+    for k, g in grads.items():
+        want = p_grads[k]
+        torch.testing.assert_close(
+            g, want, rtol=5e-3, atol=1e-3 * float(want.abs().max()),
+            msg=k)

@@ -95,6 +95,31 @@ def test_kabsch_matches_jax(reflect, masked):
                           None if m is None else jnp.asarray(m)))
 
 
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+def test_kabsch_of_a_set_that_is_not_finite_is_nan_as_in_jax(bad):
+    """A set with a non-finite point reads NaN in both packages (the CPU's
+    SVD would raise on it); the other sets keep their values and their
+    gradients bit for bit."""
+    p, q, mask = point_sets(5)
+    p[2, 1, 0] = p[4, 0, 2] = bad
+    want = np.asarray(jax_kabsch_rmsd(jnp.asarray(p), jnp.asarray(q),
+                                      jnp.asarray(mask)))
+    pt = torch.from_numpy(p).requires_grad_(True)
+    got = kabsch.kabsch_rmsd(pt, torch.from_numpy(q), torch.from_numpy(mask))
+    np.testing.assert_array_equal(np.isnan(got.detach().numpy()),
+                                  np.isnan(want))
+    assert np.isnan(want).sum() == 2
+    ok = [0, 1, 3, 5]
+    close(got.detach().numpy()[ok], want[ok])
+    got[ok].sum().backward()
+    alone = torch.from_numpy(p[ok]).requires_grad_(True)
+    ref = kabsch.kabsch_rmsd(alone, torch.from_numpy(q[ok]),
+                             torch.from_numpy(mask[ok]))
+    ref.sum().backward()
+    assert torch.equal(got.detach()[ok], ref.detach())
+    assert torch.equal(pt.grad[ok], alone.grad)
+
+
 def test_kabsch_recovers_a_rotation_exactly_up_to_rounding():
     rng = np.random.default_rng(0)
     q = rng.normal(size=(7, 3)).astype(np.float32)

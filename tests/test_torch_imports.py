@@ -39,7 +39,12 @@ def test_every_module_is_listed():
                      "probes.kernel_stages", "probes.matmul_rate",
                      "probes.overlap", "probes.pipeline",
                      "train.checkpoint", "train.loss", "train.optim",
-                     "train.trainer"):
+                     "train.trainer", "data.cell", "data.spectra",
+                     "data.local_env", "data.native", "data.shells",
+                     "data.polymorphs", "data.frames", "data.io",
+                     "data.legacy", "data.qm9", "evals.fingerprint",
+                     "evals.soap", "evals.baseline", "evals.template",
+                     "evals.real_data_check"):
         assert f"diffusion_model_tpu_torch.{expected}" in names
 
 
