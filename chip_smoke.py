@@ -171,7 +171,23 @@ Phases, each printed as one JSON line:
      each 2NN condition at 1000 steps through K1 (accepted of attempted,
      the Si-O bond median against the corpus's within 0.1 A), and
      ``template_match`` with the histogram descriptor on the card against
-     the CPU (the same rankings; descriptors equal but at bin-edge ties).
+     the CPU (the same rankings; descriptors equal but at bin-edge ties);
+ 26. cli_drivers: the drivers through their CLIs at the flagship's width,
+     from a run directory holding the snapshot's weights: ``main
+     generate_only`` on 160 synthetic graphs (16 test conditions x 5,
+     1000 steps, K1, one chunk), its ``generated.npz`` bit for bit
+     ``api.generate`` called directly, every chain finite;
+     ``evaluate_only`` and the evaluator CLIs with ``--device cuda``
+     against ``--device cpu``; ``make_dataset`` and ``template_matching``
+     on the polymorph corpus; ``train_only`` 2 epochs of the flagship's
+     recipe on kNN-15 (K2), its ``profile.json`` counted as the JAX
+     package's loop counts; ``generate_amorphous`` on two
+     192-atom network cells with ``--panel`` (K1) and ``device_trace``
+     around 3 reverse steps, the trace naming K1 and the annotated region
+     (both without redraws: such chains leave the finite range); each
+     driver's seconds and launches. Where matplotlib is missing, the
+     drivers that draw are listed and their numbers held card against CPU
+     through the functions they call.
 
 Any failed check raises, and the script exits non-zero without its result
 line. The last lines are the kernel table (with each kernel's bound: its
@@ -298,6 +314,15 @@ KABSCH_F32_B = 2           # graphs of the float32 card-against-CPU step
 KABSCH_F32_LOSS_RTOL = 1e-3
 # the largest worst-leaf relative L2 seen was 6.2e-4 (batch 4)
 KABSCH_F32_GRAD_REL = 2e-2
+CLI_RUN = ROOT / "build" / "chip_smoke_cli"
+CLI_SYNTHETIC = 160        # graphs of the driver phase: a test split of 16
+CLI_TRAIN_EPOCHS = 2
+CLI_AMORPHOUS = ["--amorphous", "2", "--generator", "network",
+                 "--num_atoms", "192", "--gen_num_per_spectrum", "2",
+                 "--panel"]
+CLI_TRACE_STEPS = 3        # strided reverse steps under device_trace
+PARAMETERS_JSON = ROOT / "tests" / "fixtures" / "torch_port" / \
+    "parameters.json"
 
 
 def log(record: dict) -> None:
@@ -2956,6 +2981,487 @@ def phase_polymorph_pipeline(device, card: str) -> dict:
     return rec
 
 
+def phase_cli_drivers(device, card: str) -> dict:
+    """The drivers through their CLIs (``diffusion_model_tpu_torch.cli``) at
+    the flagship's full width: a run directory holding the snapshot's
+    weights (``RunLogger``'s ``config.json`` and a checkpoint of a state
+    carrying them); ``main --mode generate_only`` on ``CLI_SYNTHETIC``
+    synthetic graphs (their test split, 1000 steps, K1), its
+    ``generated.npz`` bit for bit ``api.generate`` called directly with the
+    run's weights, config, seed and test split, every chain finite;
+    ``evaluate_only`` and the evaluator CLIs on it with ``--device cuda`` and
+    ``--device cpu``, their numbers held to each other (RMSDs rtol 1e-5, RDF
+    and angle scores within 1e-6, the rest equal); ``make_dataset`` and
+    ``template_matching`` on the polymorph corpus, card against CPU;
+    ``train_only`` for ``CLI_TRAIN_EPOCHS`` epochs of the flagship's recipe
+    on kNN-15 (K2 forward, ``ops.edge_grad``), its ``profile.json`` counted
+    as the JAX package's loop counts; ``generate_amorphous`` on two 192-atom
+    network cells with ``--panel`` (K1; the panel read, not gated) and
+    ``device_trace`` around ``CLI_TRACE_STEPS`` reverse steps, its Chrome
+    trace naming the K1 kernel and the ``annotate`` region, both with
+    ``max_nan_retries`` 0 (the flagship's chains on 192-atom cells, and
+    chains of 3 steps, leave the finite range: a redraw would repeat the
+    chain ten times). Each driver's launches are counted over its own run;
+    ``plain_edge_calls`` stays 0.
+
+    Without matplotlib the drivers that draw a figure raise an
+    ``ImportError`` naming it: each is listed, and its numbers are held card
+    against CPU through the ported functions it calls instead."""
+    import importlib.util
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from diffusion_model_tpu_torch import api
+    from diffusion_model_tpu_torch.cli import (
+        create_xyz,
+        evaluate_cn2,
+        evaluate_fingerprint,
+        evaluate_rdf,
+        evaluate_rmsd,
+        evaluate_si_o_si,
+        generate_amorphous,
+        main,
+        make_dataset,
+        template_matching,
+    )
+    from diffusion_model_tpu_torch.config import load_config
+    from diffusion_model_tpu_torch.data import polymorphs
+    from diffusion_model_tpu_torch.data.split import split_dataset
+    from diffusion_model_tpu_torch.data.synthetic import (
+        synthetic_sio2_dataset,
+    )
+    from diffusion_model_tpu_torch.evals.density import (
+        density_accuracy,
+        o_density,
+    )
+    from diffusion_model_tpu_torch.train.checkpoint import (
+        load_config_npz,
+        load_params_npz,
+        save_checkpoint,
+    )
+    from diffusion_model_tpu_torch.train.trainer import Trainer, params_tree
+    from diffusion_model_tpu_torch.utils.logging import RunLogger
+    from diffusion_model_tpu_torch.utils.profiling import (
+        annotate,
+        device_trace,
+    )
+
+    t_phase = time.perf_counter()
+    try:
+        import matplotlib  # noqa: F401
+        have_mpl = True
+    except ImportError:
+        have_mpl = False
+    twin = load_config(str(PARAMETERS_JSON))
+    log({"phase": "cli_drivers_setup", "card": card,
+         "matplotlib": have_mpl,
+         "pyyaml": importlib.util.find_spec("yaml") is not None,
+         "parameters_json_widths": [twin.L, twin.m_hidden_size, twin.m_size]})
+    shutil.rmtree(CLI_RUN, ignore_errors=True)
+    cfg = load_config_npz(str(SNAPSHOT))
+    rec = {"phase": "cli_drivers", "card": card, "matplotlib": have_mpl,
+           "seconds": {}, "launches": {}}
+    not_run = []
+
+    def drive(name, module, argv, pair=0, knn=0, figure=False) -> bool:
+        """``module.main(argv)``, timed, its launches counted and held to
+        ``pair`` / ``knn`` (a count, or "some": more than none) and
+        ``plain_edge_calls`` 0. Where matplotlib is missing, a driver that
+        draws may end in the ImportError naming it: then False."""
+        reset_counts()
+        t0 = time.perf_counter()
+        ran = True
+        try:
+            module.main([str(a) for a in argv])
+        except ImportError as e:
+            if have_mpl or not figure or "matplotlib" not in str(e):
+                raise
+            not_run.append({"driver": name, "error": str(e)})
+            ran = False
+        rec["seconds"][name] = time.perf_counter() - t0
+        counts = rec["launches"][name] = read_counts()
+
+        def ok(got, want):
+            return got > 0 if want == "some" else got == want
+
+        if counts["plain_edge_calls"] or not ok(counts["egcl_pair"], pair) \
+                or not ok(counts["egcl_knn"], knn):
+            raise AssertionError(f"{name}: launches {counts}, want K1 "
+                                 f"{pair}, K2 {knn}")
+        return ran
+
+    # the run directory of the snapshot's weights
+    run = CLI_RUN / "flagship"
+    RunLogger(str(run), cfg)
+    trainer = Trainer(cfg, device=device)
+    state = trainer.init_state(cfg.seed,
+                               params=load_params_npz(str(SNAPSHOT)),
+                               skip_gamma_fit=True)
+    save_checkpoint(str(run / "checkpoints"), state, cfg, step=0)
+    del trainer, state
+
+    # generate_only, then the same generation called directly
+    card_args = ["--device", str(device)]
+    synthetic = ["--synthetic", CLI_SYNTHETIC]
+    graphs = api.prepare_dataset(synthetic_sio2_dataset(
+        cfg.seed, CLI_SYNTHETIC, cfg.n_max, spectrum_size=cfg.spectrum_size,
+        shells=2), cfg)
+    test = split_dataset(graphs, cfg.seed)[2]
+    chunks = -(-len(test) // GEN_BATCH)
+    ran = drive("generate_only", main,
+                ["--mode", "generate_only", "--run_dir", run, *synthetic,
+                 *card_args], pair="some", figure=True)
+    if not ran and not (run / "generated.npz").exists():
+        raise AssertionError("generate_only wrote no generated.npz")
+    _, loaded = api.load_trained(str(run), cfg, device)
+    direct = api.generate(cfg, params_tree(loaded.eval_params(cfg)), test,
+                          device=device)
+    written = np.load(run / "generated.npz")
+    off = [k for k in written.files if not np.array_equal(
+        written[k], np.asarray(direct[k]),
+        equal_nan=written[k].dtype.kind == "f")]
+    rec["generate_only"] = {
+        "conditions": len(test), "samples": int(len(direct["ids"])),
+        "launches_without_retry": chunks * 1001 * cfg.L,
+        "finite": int(direct["finite"].sum()),
+        "accepted": int(direct["accepted"].sum()),
+        "bit_for_bit_direct": not off, "keys_off": off}
+    if off or sorted(written.files) != sorted(direct):
+        raise AssertionError(f"generate_only's generated.npz is not "
+                             f"api.generate's: {off}")
+    if not direct["finite"].all():
+        raise AssertionError(f"generate_only: {rec['generate_only']}")
+    results = {k: written[k] for k in written.files}
+    results["ids"] = [str(i) for i in written["ids"]]
+
+    # the evaluators, card against CPU on copies of the run directory
+    devices = {"card": str(device), "cpu": "cpu"}
+    copies = {}
+    for where in devices:
+        d = CLI_RUN / f"eval_{where}"
+        shutil.copytree(run, d, ignore=shutil.ignore_patterns("checkpoints"))
+        os.symlink(run / "checkpoints", d / "checkpoints")
+        RunLogger(str(d)).register_artifact("generated_graph_save_path",
+                                            str(d / "generated.npz"))
+        copies[where] = d
+    readings, group = {}, cfg.gen_num_per_spectrum
+    for name, module, argv, figure in (
+            ("evaluate_only", main, ["--mode", "evaluate_only", *synthetic],
+             True),
+            ("evaluate_rdf", evaluate_rdf, [], True),
+            ("evaluate_rmsd", evaluate_rmsd, [], True),
+            ("evaluate_si_o_si", evaluate_si_o_si, [], True),
+            ("create_xyz", create_xyz, [], False)):
+        for where, d in copies.items():
+            ran = drive(f"{name}_{where}", module,
+                        [*argv, "--run_dir", d, "--device", devices[where]],
+                        figure=figure)
+            readings.setdefault(name, {})[where] = (
+                driver_reading(name, d) if ran else figure_free_numbers(
+                    name, results, torch.device(devices[where]), group))
+        readings[name]["max_gap"] = same_numbers(
+            readings[name]["card"], readings[name]["cpu"], name)
+    for name, module in (("evaluate_cn2", evaluate_cn2),
+                         ("evaluate_fingerprint", evaluate_fingerprint)):
+        # numpy on the host: once, on this machine's CPU
+        if drive(name, module, ["--run_dir", copies["card"]], figure=True):
+            readings[name] = driver_reading(name, copies["card"])
+        else:
+            readings[name] = figure_free_numbers(name, results, None, group)
+    rec["evaluators"] = readings
+
+    # make_dataset and template_matching on the polymorph corpus
+    corpus = CLI_RUN / "corpus"
+    polymorphs.write_corpus(str(corpus), seed=0)
+    drive("make_dataset", make_dataset,
+          ["--range", "2NN", "--cell_dir_path", corpus, "--save_dir_path",
+           CLI_RUN / "dataset"])
+    matches = {}
+    dataset = CLI_RUN / "dataset" / "dataset.npz"
+    for where, dev in devices.items():
+        out = CLI_RUN / f"template_{where}"
+        drive(f"template_matching_{where}", template_matching,
+              ["--reference_dataset_path", dataset, "--target_dataset_path",
+               dataset, "--save_dir", out, "--device", dev])
+        with open(out / "template_matching_result.json") as f:
+            matches[where] = json.load(f)
+    ranks = {w: [[list(r) for r in rows] for rows in m.values()]
+             for w, m in matches.items()}
+    mse = {w: [[list(r.values())[0][0] for r in rows]
+               for rows in m.values()] for w, m in matches.items()}
+    sim_gap = max(abs(list(a.values())[0][1] - list(b.values())[0][1])
+                  for t in matches["cpu"]
+                  for a, b in zip(matches["card"][t], matches["cpu"][t]))
+    rec["template_matching"] = {"targets": len(matches["cpu"]),
+                                "similarity_gap": sim_gap}
+    if ranks["card"] != ranks["cpu"] or mse["card"] != mse["cpu"]:
+        raise AssertionError("template_matching ranks differently on the "
+                             "card")
+
+    # train_only on kNN-15: K2 forward, the plain statement's autograd back
+    train_cfg = CLI_RUN / "flagship_knn15.json"
+    with open(train_cfg, "w") as f:
+        json.dump(cfg.replace(neighbor_k=SERVED_K).to_dict(), f)
+    train_run = CLI_RUN / "train_knn15"
+    drive("train_only", main,
+          ["--mode", "train_only", "--run_dir", train_run, "--config",
+           train_cfg, "--synthetic", NUM_GRAPHS, "--num_epochs",
+           CLI_TRAIN_EPOCHS, *card_args], knn="some")
+    with open(train_run / "profile.json") as f:
+        profile = json.load(f)
+    with open(train_run / "metrics.jsonl") as f:
+        epochs = [json.loads(x) for x in f]
+    kept = [r for r in epochs if "train_loss" in r]
+    every = cfg.checkpoint_every
+    want = {"train_epoch": len(kept) + sum("nan_recovery" in r
+                                           for r in epochs),
+            "eval_epoch": len(kept),
+            "checkpoint": 1 + sum(1 for r in kept if every
+                                  and (r["step"] + 1) % every == 0)}
+    got = {k: v["count"] for k, v in profile.items()}
+    rec["train_only"] = {"profile": profile, "jax_loop_counts": want,
+                         "losses": [[r["train_loss"], r["eval_loss"]]
+                                    for r in kept]}
+    if got != want or len(kept) != CLI_TRAIN_EPOCHS or not all(
+            math.isfinite(r["train_loss"]) for r in kept):
+        raise AssertionError(f"train_only: {rec['train_only']}")
+    if rec["launches"]["train_only"]["egcl_knn"] % cfg.L:
+        raise AssertionError(f"train_only: {rec['launches']}")
+
+    # generate_amorphous on network cells, through K1, from the same
+    # weights with no redraw: on 192 atoms the flagship's chains leave the
+    # finite range, and each of ten redraws would cost a whole chain
+    once = CLI_RUN / "flagship_no_retry"
+    once.mkdir()
+    os.symlink(run / "checkpoints", once / "checkpoints")
+    RunLogger(str(once), cfg.replace(max_nan_retries=0))
+    ran = drive("generate_amorphous", generate_amorphous,
+                ["--run_dir", once, *CLI_AMORPHOUS, *card_args],
+                pair="some", figure=True)
+    if ran:
+        amorphous = np.load(once / "generated_amorphous.npz")
+        with open(once / "amorphous_panel.json") as f:
+            panel = json.load(f)
+    else:
+        amorphous, panel = amorphous_without_figures(
+            cfg.replace(max_nan_retries=0), once, device)
+    rec["generate_amorphous"] = {
+        "samples": int(len(amorphous["ids"])),
+        "finite": int(np.asarray(amorphous["finite"]).sum()),
+        "o_density_accuracy": density_accuracy(
+            o_density(amorphous["original_species"], amorphous["mask"]),
+            o_density(amorphous["generated_species"], amorphous["mask"])),
+        "panel": panel}
+
+    # device_trace around a few reverse steps of the same sampler
+    model = api.denoiser_from_params(cfg, load_params_npz(str(SNAPSHOT)),
+                                     device)
+    trace_dir = CLI_RUN / "trace"
+    reset_counts()
+    with device_trace(str(trace_dir)) as prof:
+        with annotate("cli_drivers.reverse_steps"):
+            api.generate(cfg.replace(sample_steps=CLI_TRACE_STEPS,
+                                     max_nan_retries=0), model,
+                         test[:1], gen_num_per_spectrum=1, device=device)
+    trace_counts = rec["launches"]["device_trace"] = read_counts()
+    trace, = trace_dir.glob("*.pt.trace.json")
+    with open(trace) as f:
+        names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+    k1 = sorted({n for n in names if "edge_kernel" in n and "PairOp" in n})
+    rec["device_trace"] = {
+        "file": trace.name, "events": len(names), "k1_kernel_names": k1,
+        "k1_events": sum(n in k1 for n in names),
+        "annotation": "cli_drivers.reverse_steps" in names,
+        "launches": trace_counts,
+        "device_ms": sum(getattr(e, "self_device_time_total", 0)
+                         for e in prof.key_averages()) / 1e3}
+    if not k1 or not rec["device_trace"]["annotation"] or \
+            not trace_counts["egcl_pair"] or trace_counts["plain_edge_calls"]:
+        raise AssertionError(f"device_trace: {rec['device_trace']}")
+
+    rec["not_run_without_matplotlib"] = not_run
+    rec["phase_s"] = time.perf_counter() - t_phase
+    rec["k1_launches"] = sum(c["egcl_pair"] for c in rec["launches"].values())
+    rec["k2_launches"] = sum(c["egcl_knn"] for c in rec["launches"].values())
+    if not_run:
+        log({"phase": "cli_drivers_without_matplotlib", "not_run": not_run})
+    log(rec)
+    return rec
+
+
+def driver_reading(name: str, run_dir) -> dict:
+    """What a driver that ran wrote: the numbers of its last
+    ``metrics.jsonl`` line (``evaluate_rmsd``: its sorted RMSDs; ``create_xyz``:
+    the RMSDs and coordinates of its xyz pairs)."""
+    import numpy as np
+
+    run_dir = Path(run_dir)
+    if name == "evaluate_rmsd":
+        z = np.load(run_dir / "rmsd_xyz" / "sorted_id_rmsd.npz")
+        return {"ids": [str(i) for i in z["ids"]],
+                "rmsd": [float(v) for v in z["rmsd"]]}
+    if name == "create_xyz":
+        out = {}
+        for path in sorted((run_dir / "xyz_pairs").rglob("*.xyz")):
+            lines = path.read_text().split("\n")
+            rows = [ln.split() for ln in lines[2:] if ln]
+            out[str(path.relative_to(run_dir))] = {
+                "rmsd": float(lines[1].rsplit(" ", 1)[1]),
+                "elements": [r[0] for r in rows],
+                "xyz": [float(v) for r in rows for v in r[1:]]}
+        return out
+    with open(run_dir / "metrics.jsonl") as f:
+        last = json.loads(f.read().splitlines()[-1])
+    last.pop("time", None)
+    return last
+
+
+def figure_free_numbers(name: str, results: dict, device,
+                        group: int) -> dict:
+    """The numbers a driver that draws logs, through the ported functions
+    it calls, for a machine without matplotlib (``group``: samples a
+    condition)."""
+    import numpy as np
+
+    from diffusion_model_tpu_torch import api
+    from diffusion_model_tpu_torch.evals import cn2, fingerprint, rdf, rmsd
+
+    keep = np.nonzero(results["accepted"])[0]
+    acc = {k: np.asarray(v)[keep] for k, v in results.items() if k != "ids"}
+    ids = [results["ids"][i] for i in keep]
+
+    def trim(key, i):
+        return acc[key][i][:int(acc["mask"][i].sum())]
+
+    if name == "evaluate_only":
+        num = api.evaluate_numbers(results, device)
+        if not num["num_accepted"]:
+            return {"num_accepted": 0}
+        return {k: num[k] for k in ("rmsd_best", "rmsd_median", "rmsd_worst",
+                                    "atom_type_accuracy", "num_accepted")}
+    if name == "evaluate_rdf":
+        v = np.asarray([r["cos"] for r in rdf.evaluate_rdf_lists(
+            acc["original_pos"], acc["mask"], acc["generated_pos"],
+            acc["mask"], device=device)])
+        return {"rdf_cos_mean": float(v.mean()), "rdf_cos_std": float(v.std())}
+    if name == "evaluate_rmsd":
+        rows = sorted((ids[i], rmsd.permutation_min_rmsd(
+            trim("original_pos", i), trim("generated_pos", i),
+            device=device)[0]) for i in range(len(keep)))
+        rows.sort(key=lambda r: r[1])
+        return {"ids": [r[0] for r in rows], "rmsd": [r[1] for r in rows]}
+    if name == "evaluate_si_o_si":
+        keep_o, trip_o = cn2.filter_si_o_si(
+            acc["original_pos"], acc["original_species"], acc["mask"])
+        keep_g, trip_g = cn2.filter_si_o_si(
+            acc["generated_pos"], acc["generated_species"], acc["mask"])
+        both = sorted(set(keep_o) & set(keep_g))
+        if not both:
+            return {"si_o_si_count": 0}
+        angles = [cn2.cn2_statistics(t[[k.index(i) for i in both]],
+                                     device=device)["angle_deg"]
+                  for k, t in ((keep_o, trip_o), (keep_g, trip_g))]
+        return {"si_o_si_angle_r2": cn2.r2score(*angles),
+                "si_o_si_count": len(both)}
+    if name == "evaluate_cn2":
+        geo = cn2._cn2_sample_geometry(results)
+        return {"cn2_angle_r2": cn2.r2score(*cn2.conditional_angle_parity(
+                    results, group, geo=geo)),
+                "cn2_bond_r2": cn2.r2score(*cn2.conditional_bond_parity(
+                    results, group, geo=geo))}
+    if name == "evaluate_fingerprint":
+        symbols = ("O", "Si")
+
+        def sym(key, i):
+            return [symbols[int(np.argmax(s))] for s in trim(key, i)]
+
+        sims = [fingerprint.fingerprint_similarity(
+            trim("original_pos", i), sym("original_species", i),
+            trim("generated_pos", i), sym("generated_species", i))
+            for i in range(len(keep))]
+        return {"fingerprint_similarity_mean": float(np.mean(sims))}
+    raise ValueError(name)
+
+
+def amorphous_without_figures(cfg, run, device):
+    """``generate_amorphous``'s generation and panel without its figure:
+    the same conditions, weights and calls."""
+    from diffusion_model_tpu_torch import api
+    from diffusion_model_tpu_torch.cli import generate_amorphous
+    from diffusion_model_tpu_torch.data.synthetic import (
+        amorphous_network_cell,
+    )
+    from diffusion_model_tpu_torch.train.trainer import params_tree
+
+    args = generate_amorphous.parser().parse_args(
+        ["--run_dir", str(run), *CLI_AMORPHOUS])
+
+    def make_cell(seed):
+        return amorphous_network_cell(seed=seed, num_atoms=args.num_atoms,
+                                      spectrum_size=cfg.spectrum_size)
+
+    graphs = api.prepare_dataset([make_cell(cfg.seed + 10_000 + i)
+                                  for i in range(args.amorphous)], cfg)
+    big = cfg.replace(n_max=max(cfg.n_max, args.num_atoms))
+    _, state = api.load_trained(str(run), big, device)
+    reset_counts()
+    out = api.generate(big, params_tree(state.eval_params(big)), graphs,
+                       gen_num_per_spectrum=args.gen_num_per_spectrum,
+                       device=device)
+    counts = read_counts()
+    if not counts["egcl_pair"] or counts["plain_edge_calls"]:
+        raise AssertionError(f"amorphous generation: {counts}")
+    return out, generate_amorphous.amorphous_panel(out, make_cell, device)
+
+
+def same_numbers(card, cpu, what: str) -> float:
+    """A driver's readings on the card and on the CPU: floats of an RMSD
+    (``rmsd*``, and create_xyz's coordinates) at rtol 1e-5 (with a floor
+    of 1e-5 of the set's scale for coordinates), RDF and angle scores
+    within 1e-6, everything else equal. Returns the largest gap."""
+    import numpy as np
+
+    worst = 0.0
+
+    def close(a, b, key):
+        nonlocal worst
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        if key.startswith(("rdf_", "si_o_si_angle")):
+            ok = np.allclose(a, b, rtol=0, atol=1e-6, equal_nan=True)
+        elif key.startswith("rmsd") or key == "xyz":
+            scale = float(np.abs(b).max()) if b.size else 0.0
+            ok = np.allclose(a, b, rtol=1e-5,
+                             atol=1e-5 * scale if key == "xyz" else 0.0,
+                             equal_nan=True)
+        else:
+            ok = np.array_equal(a, b, equal_nan=True)
+        if not ok:
+            raise AssertionError(f"{what}: {key} on the card {a} against "
+                                 f"{b} on the CPU")
+        gap = np.abs(a - b)
+        gap = gap[np.isfinite(gap)]
+        if gap.size:
+            worst = max(worst, float(gap.max()))
+
+    def walk(a, b, key):
+        if isinstance(b, dict):
+            if sorted(a) != sorted(b):
+                raise AssertionError(f"{what}: keys {sorted(a)} against "
+                                     f"{sorted(b)}")
+            for k in b:
+                walk(a[k], b[k], k)
+        elif isinstance(b, (float, int)) or (
+                isinstance(b, list) and b and isinstance(b[0], float)):
+            close(a, b, key)
+        elif a != b:
+            raise AssertionError(f"{what}: {key} {a} against {b}")
+
+    walk(card, cpu, what)
+    return worst
+
+
 def angle_on_bin_edge(pos, tol_deg: float = 1e-3) -> bool:
     """Whether an angle at exO between neighbours within 2.5 A lies within
     ``tol_deg`` of a 10-degree histogram bin edge."""
@@ -3283,6 +3789,7 @@ def main() -> int:
                           card)
     polymorph = kernels_only("polymorph_pipeline", phase_polymorph_pipeline,
                              device, card)
+    drivers = kernels_only("cli_drivers", phase_cli_drivers, device, card)
     log({"phase": "flagship_routes", "plain_edge_calls": plain_calls,
          "egcl_pair_launches_served": pair_launches,
          "egcl_knn_launches_served": knn_launches,
@@ -3307,6 +3814,7 @@ def main() -> int:
          "kabsch_launches": kabsch["launches"]["egcl_pair"],
          "polymorph_launches": polymorph["generate"]["launches"][
              "egcl_pair"],
+         "cli_drivers_launches": drivers["k1_launches"],
          "train_grad": grads["egcl_pair_64x16_bfloat16"]},
         {"name": "egcl_knn", "route": "cuda",
          "source": "diffusion_model_tpu_torch/csrc/egcl_knn.cu",
@@ -3316,6 +3824,7 @@ def main() -> int:
          "heads_launches": heads["egcl_knn"],
          "variants_launches": variants["egcl_knn"],
          "kabsch_launches": kabsch["launches"]["egcl_knn"],
+         "cli_drivers_launches": drivers["k2_launches"],
          "train_grad": grads["egcl_knn_64x16_k15_bfloat16"]},
         *probes,
     ]})

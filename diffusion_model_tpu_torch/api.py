@@ -4,7 +4,8 @@ generation from a snapshot or a run, and the run's evaluation.
     trainer, state, (train, val, test) = train(cfg, graphs, run_dir)
     # run_dir/checkpoints/<epoch>/: the full state every checkpoint_every
     # epochs and at the end; run_dir/params.npz: the eval parameters, as the
-    # JAX package saves them; run_dir/metrics.jsonl, config.json (RunLogger)
+    # JAX package saves them; run_dir/metrics.jsonl, config.json (RunLogger);
+    # run_dir/profile.json: seconds per phase (utils.profiling.PhaseTimer)
     train(cfg, graphs, run_dir, resume=True)   # on from the newest epoch
     trainer, state = load_trained(run_dir, cfg)
     out = generate(cfg, params_tree(state.eval_params(cfg)), test)
@@ -30,6 +31,7 @@ kernel on the card); otherwise over the dense pair grid (``edge_fn``).
 
 from __future__ import annotations
 
+import json
 import os
 import time
 from typing import Callable, Optional, Union
@@ -79,7 +81,9 @@ from diffusion_model_tpu_torch.train.trainer import (
     TrainState,
     params_tree,
 )
+from diffusion_model_tpu_torch.utils.figures import pyplot
 from diffusion_model_tpu_torch.utils.logging import RunLogger
+from diffusion_model_tpu_torch.utils.profiling import PhaseTimer
 
 MAX_NAN_RECOVERIES = 10
 
@@ -127,10 +131,13 @@ def train(cfg: Config, dataset: list, run_dir: str,
     seconds go through ``logger`` (default ``RunLogger(run_dir, cfg)``) to
     ``run_dir/metrics.jsonl``; the full state goes to
     ``run_dir/checkpoints/<epochs done>/`` after every epoch with
-    ``(epoch + 1) % cfg.checkpoint_every == 0`` and at the end; the eval
+    ``(epoch + 1) % cfg.checkpoint_every == 0`` and at the end (again where
+    that epoch was just saved, as the JAX package does); the eval
     parameters to ``run_dir/params.npz`` (float16, config embedded) at the
-    end. The JAX package's per-phase ``profile.json`` is not written yet
-    (``utils/profiling.py``, ROADMAP.md queue 1 item 8).
+    end; and the wall-clock seconds of the phases ``train_epoch`` (every
+    epoch, a rolled-back one too), ``eval_epoch`` (every kept epoch) and
+    ``checkpoint`` (every save) to ``run_dir/profile.json``
+    (``utils.profiling.PhaseTimer.report``), as the JAX package writes it.
 
     ``resume=True`` restores the newest checkpoint of ``run_dir`` and goes
     on from its epoch. An epoch's batch order and its noise streams depend
@@ -179,18 +186,20 @@ def train(cfg: Config, dataset: list, run_dir: str,
     if state is None:
         state = trainer.init_state(cfg.seed)
     stopper = EarlyStopping(patience=cfg.patience)
+    timer = PhaseTimer()
     epochs = cfg.num_epochs if num_epochs is None else num_epochs
     nan_recoveries = 0
     good = state.clone()
     train_data = collate(train_set, cfg.n_max, device)
     val_data = collate(val_set, cfg.n_max, device) if val_set else None
-    done = saved = start_epoch
+    done = start_epoch
     for epoch in range(start_epoch, epochs):
         t0 = time.perf_counter()
         batches = device_batch_iterator(train_data, cfg.batch_size,
                                         seed=cfg.seed + epoch)
-        state, train_loss = trainer.train_epoch(state, noise(epoch, "train"),
-                                                batches)
+        with timer.phase("train_epoch"):
+            state, train_loss = trainer.train_epoch(
+                state, noise(epoch, "train"), batches)
         done = epoch + 1
         if not np.isfinite(train_loss):
             nan_recoveries += 1
@@ -204,20 +213,23 @@ def train(cfg: Config, dataset: list, run_dir: str,
         good = state.clone()
         val_batches = (device_batch_iterator(val_data, cfg.batch_size)
                        if val_data is not None else iter(()))
-        eval_loss = trainer.eval_epoch(state, noise(epoch, "eval"),
-                                       val_batches)
+        with timer.phase("eval_epoch"):
+            eval_loss = trainer.eval_epoch(state, noise(epoch, "eval"),
+                                           val_batches)
         logger.log({"train_loss": train_loss, "eval_loss": eval_loss,
                     "epoch_s": time.perf_counter() - t0}, step=epoch)
         if cfg.checkpoint_every and done % cfg.checkpoint_every == 0:
-            save_checkpoint(ckpt_dir, state, cfg, step=done)
-            saved = done
+            with timer.phase("checkpoint"):
+                save_checkpoint(ckpt_dir, state, cfg, step=done)
         if stopper.validate(eval_loss):
             break
-    if saved != done or latest_step(ckpt_dir) is None:
+    with timer.phase("checkpoint"):
         save_checkpoint(ckpt_dir, state, cfg, step=done)
     logger.register_artifact("checkpoints", ckpt_dir)
     save_params_npz(params_tree(state.eval_params(cfg)),
                     os.path.join(run_dir, "params.npz"), cfg=cfg)
+    with open(os.path.join(run_dir, "profile.json"), "w") as f:
+        json.dump(timer.report(), f, indent=1)
     return trainer, state, (train_set, val_set, test_set)
 
 
@@ -456,15 +468,12 @@ def evaluate(results: dict, run_dir: str, logger: Optional[RunLogger] = None,
     ``diffusion_model_tpu.api.evaluate``: the numbers of
     ``evaluate_numbers`` logged (``rmsd_best``, ``rmsd_median``,
     ``rmsd_worst``, ``atom_type_accuracy``, ``num_accepted``), the figures
-    ``rmsd`` and ``atom_type_eval`` (matplotlib, imported here), and with
+    ``rmsd`` and ``atom_type_eval`` (matplotlib, imported here: without it
+    ``utils.figures.pyplot`` raises before anything is logged), and with
     ``create_xyz`` the overlays of the best three, the median and the worst
     sample as ``run_dir/<name>.xyz``. Returns ``sorted_rmsd``,
     ``atom_type_accuracy`` and ``num_accepted``."""
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
+    plt = pyplot("rmsd")
     logger = logger or RunLogger(run_dir)
     num = evaluate_numbers(results, device)
     if num["num_accepted"] == 0:
@@ -529,11 +538,7 @@ def record_schedule(cfg: Config, trainer: Trainer, state, run_dir: str,
     ``sigma = sqrt(clip(1 - alpha^2, 0, 1))``, ``SNR = alpha^2 /
     max(sigma^2, 1e-12)``, and for a learned schedule ``gamma`` on
     ``linspace(0, 1, T + 1)``. Returns name -> path."""
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
+    plt = pyplot("alpha")
     logger = logger or RunLogger(run_dir)
     _, gamma = trainer._load_eval(state.eval_params(cfg))
     with torch.no_grad():

@@ -19,14 +19,17 @@ a field here, so a config round-trips. What the port does with each:
 - ``train.Trainer`` refuses the training setting it has no path for (a
   mesh).
 
-``from_dict`` ignores keys that are no field (a run's extras). No yaml:
-PyTorch does not depend on PyYAML, so a module-level ``import yaml`` would
-stop the port from importing on a machine that has only PyTorch and numpy.
+``from_dict`` ignores keys that are no field (a run's extras).
+``load_config`` reads a reference-style ``parameters.yaml`` or the same
+keys as JSON. PyTorch does not depend on PyYAML, so yaml is imported only
+to read a YAML file: the port imports on a machine that has only PyTorch
+and numpy, and reads JSON there.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Any, Sequence
 
 import torch
@@ -231,3 +234,21 @@ def from_dict(d: dict) -> Config:
         if isinstance(known.get(key), list):
             known[key] = tuple(known[key])
     return Config(**known)
+
+
+def load_config(path: str) -> Config:
+    """A Config from a reference-style ``parameters.yaml`` (or ``.yml``),
+    as ``diffusion_model_tpu.config.load_config`` reads it, or from a JSON
+    file of the same keys; keys that are no field are ignored. A YAML file
+    needs PyYAML, and without it raises ``ImportError`` saying so."""
+    path = str(path)
+    with open(path) as f:
+        if path.endswith(".json"):
+            return from_dict(json.load(f))
+        try:
+            import yaml
+        except ImportError as e:
+            raise ImportError(
+                f"reading {path} needs PyYAML, which is not installed; "
+                "give the same keys as a .json file") from e
+        return from_dict(yaml.safe_load(f))

@@ -15,10 +15,20 @@ write. Two exceptions, each with its tolerance:
 * ``beta_schedule``: JAX builds the grid with ``jnp.linspace`` in float32,
   the port with ``linspace_f32``, so the tables agree to rtol 1e-6;
   ``ddpm_alpha_bar`` of one table is bit for bit (``jnp.cumprod``'s order).
+
+The JAX package's library is compared through a copy these tests build
+themselves (``jax_library``: ``native/graphbuild.cpp`` with the flags of
+``native/Makefile``, into a temporary directory), never through
+``native/libgraphbuild.so``. That file is built in place by ``make`` on
+first use, and test processes started together race for it: a process
+that finds it half written loads nothing, and the JAX module keeps that
+failure for the life of the process.
 """
 
 import os
+import re
 import shutil
+import subprocess
 from pathlib import Path
 
 import numpy as np
@@ -52,6 +62,7 @@ from diffusion_model_tpu_torch.ops import schedules
 torch.set_num_threads(4)
 
 CASTEP = Path(__file__).resolve().parent / "fixtures" / "castep"
+NATIVE = Path(__file__).resolve().parents[1] / "native"
 
 CUBIC = """%BLOCK LATTICE_ABC
 5.0 5.0 5.0
@@ -290,8 +301,43 @@ def close_graphs(got: dict, want: dict):
     np.testing.assert_allclose(got["pos"], want["pos"], rtol=0, atol=1e-6)
 
 
+def makefile_flags() -> list:
+    """The compiler flags ``native/Makefile`` builds the JAX package's
+    library with."""
+    text = (NATIVE / "Makefile").read_text()
+    return re.search(r"^CXXFLAGS\s*\?=(.*)$", text, re.M).group(1).split()
+
+
+@pytest.fixture(scope="session")
+def jax_flags_library(tmp_path_factory) -> str:
+    """The JAX package's library as its Makefile builds it, compiled by this
+    process under a temporary name and renamed into place."""
+    out = tmp_path_factory.mktemp("jax_native") / "libgraphbuild.so"
+    tmp = out.with_suffix(".tmp.so")
+    subprocess.run([shutil.which("g++") or "g++", *makefile_flags(),
+                    str(NATIVE / "graphbuild.cpp"), "-o", str(tmp)],
+                   check=True, capture_output=True, timeout=120)
+    os.replace(tmp, out)
+    return str(out)
+
+
+def use_jax_library(monkeypatch, path: str) -> None:
+    """Point the JAX module at the library ``path``, loaded afresh."""
+    monkeypatch.setattr(jax_native, "_LIB_PATH", path)
+    monkeypatch.setattr(jax_native, "_lib", None)
+    monkeypatch.setattr(jax_native, "_load_failed", False)
+
+
+@pytest.fixture
+def jax_library(jax_flags_library, monkeypatch) -> str:
+    use_jax_library(monkeypatch, jax_flags_library)
+    assert jax_native.available()
+    return jax_flags_library
+
+
 @pytest.mark.parametrize("n_shells", [1, 2, 3])
-def test_shells_match_jax_and_native_matches_numpy(tmp_path, n_shells):
+def test_shells_match_jax_and_native_matches_numpy(tmp_path, n_shells,
+                                                   jax_library):
     """The numpy routes bit for bit; the port's library selects as both
     numpy routes do. In ``CUBIC`` two Si images lie exactly 2.0 A apart,
     the cutoff: there the JAX package's own library (built with
@@ -318,7 +364,7 @@ def test_shells_match_jax_and_native_matches_numpy(tmp_path, n_shells):
     assert apart <= {"cubic"}
 
 
-def test_native_distance_and_knn_match_jax():
+def test_native_distance_and_knn_match_jax(jax_library):
     rng = np.random.default_rng(4)
     pos = rng.normal(0, 2, (20, 3))
     got = native.distance_matrix_native(pos)
@@ -329,6 +375,24 @@ def test_native_distance_and_knn_match_jax():
                                rtol=1e-15, atol=0)
     np.testing.assert_array_equal(native.knn_indices_native(pos, 5),
                                   jax_native.knn_indices_native(pos, 5))
+
+
+def test_a_half_written_jax_library_does_not_fail_the_comparison(
+        tmp_path, monkeypatch, jax_flags_library):
+    """The race: the JAX module finds a library cut short (its ELF header
+    written and no more: another process's linker still at work), fails
+    to load it and keeps the failure, so its native routines raise. The
+    comparison then runs against the library ``jax_library`` builds, and
+    passes."""
+    cut = tmp_path / "libgraphbuild.so"
+    cut.write_bytes(Path(jax_flags_library).read_bytes()[:64])
+    use_jax_library(monkeypatch, str(cut))
+    assert not jax_native.available()
+    assert jax_native._load_failed
+    with pytest.raises(RuntimeError, match="native library unavailable"):
+        jax_native.distance_matrix_native(np.zeros((3, 3)))
+    use_jax_library(monkeypatch, jax_flags_library)
+    test_native_distance_and_knn_match_jax(jax_flags_library)
 
 
 @pytest.mark.parametrize("nn_range", ["1NN", "2NN", "3NN", "4NN"])

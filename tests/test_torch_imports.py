@@ -44,7 +44,13 @@ def test_every_module_is_listed():
                      "data.polymorphs", "data.frames", "data.io",
                      "data.legacy", "data.qm9", "evals.fingerprint",
                      "evals.soap", "evals.baseline", "evals.template",
-                     "evals.real_data_check"):
+                     "evals.real_data_check", "utils.profiling",
+                     "utils.figures", "cli", "cli.common", "cli.main",
+                     "cli.make_dataset", "cli.create_xyz",
+                     "cli.template_matching", "cli.evaluate_rdf",
+                     "cli.evaluate_rmsd", "cli.evaluate_cn2",
+                     "cli.evaluate_si_o_si", "cli.evaluate_fingerprint",
+                     "cli.generate_amorphous", "cli.cn"):
         assert f"diffusion_model_tpu_torch.{expected}" in names
 
 
