@@ -117,7 +117,7 @@ Phases, each printed as one JSON line:
      the flagship's weights read as that head, one bf16 denoiser call
      through K1 against the plain statement at t = 1, 10, 500, 1000 (raw
      output relative L2 1e-2; the converted output's gap beside alpha /
-     sigma); the flagship's recipe with the head from a fresh init, 150
+     sigma); the flagship's recipe with the head from a fresh init, 50
      epochs through K1 (finite, falling loss), then 27 x 5 sampled at 250
      strided and at 1000 steps through K1 (one round, scores logged, no
      gate; the eps recipe's epoch timed beside, 30 epochs); and the large
@@ -160,8 +160,8 @@ Phases, each printed as one JSON line:
      train split, dense K1): one train step through the full 1000-step
      reverse chain under autograd (each denoiser call checkpointed: K1
      5 + 1001 x 5 x 2 = 10,015 times, the plain route never; loss and
-     ``grad_norm`` finite; ms, peak memory), three steps at 250 strided
-     steps, one float32 250-step step at batch 2 on the card against the
+     ``grad_norm`` finite; ms, peak memory), one step at 250 strided
+     steps, one float32 250-step step at batch 1 on the card against the
      CPU from the same draws (loss and every gradient leaf), and the
      250-step step on kNN-15 through K2;
  25. polymorph_pipeline: the SiO2 polymorph corpus (46 samples) through
@@ -188,6 +188,23 @@ Phases, each printed as one JSON line:
      driver's seconds and launches. Where matplotlib is missing, the
      drivers that draw are listed and their numbers held card against CPU
      through the functions they call.
+ 27. served_export: the flagship's run directory exported through
+     ``cli.export.main --calibrate 2`` (dense, 250 strided deterministic
+     steps, 16 conditions) and through ``serve.export_sampler`` on kNN-15
+     and with 2 retry rounds: each ``ServedSampler`` call bit for bit the
+     live ``sample`` at the same seed, 1,255 launches of K1 (or K2) a call,
+     the retry export equal to the retry-free one on the rows it accepts;
+     ms a call;
+ 28. distill: ``api.distill`` from the flagship's weights, one halving
+     1000 -> 500, 2 epochs at batch 64 (K1 15 times a step; ms a step,
+     the median after the first; losses finite), the student sampled at 500 deterministic steps on 16
+     conditions (finite count read), and one float32 ``distill_loss`` at
+     batch 2 on the card against the CPU (loss rel 1e-3, leaves 2e-2);
+ 29. spectrum_latent: ``pretrain_autoencoder`` (500 steps, latent 32) on
+     the flagship data's 200-wide spectra, ``encode_dataset`` card against
+     CPU, a fresh latent-conditioned model at the flagship's widths trained
+     2 epochs on K1 and sampled on 16 conditions at 250 strided steps with
+     no redraw (finite count read, not gated).
 
 Any failed check raises, and the script exits non-zero without its result
 line. The last lines are the kernel table (with each kernel's bound: its
@@ -278,7 +295,7 @@ RESUME_EPOCHS = 4      # of the checkpoint_resume phase's runs
 RESUME_SPREAD = 3.0
 HEAD_MODES = ("x0", "v")
 HEAD_T = (1, 10, 500, 1000)   # timesteps of the heads' K1-vs-plain call
-HEAD_EPOCHS = 150      # of the flagship's recipe with each head
+HEAD_EPOCHS = 50       # of the flagship's recipe with each head
 HEAD_BASELINE_EPOCHS = 30   # of the eps recipe, timed beside the heads
 STRIDED_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port" / \
     "jax_strided_250.json"
@@ -309,8 +326,8 @@ KABSCH_B = 64              # the flagship recipe's batch
 # in bf16 on the card; the JAX package's chains do so too at 50 and 100
 # (tests/jax_finite_chains.py). At 250 all stay finite.
 KABSCH_SHORT = 250
-KABSCH_SHORT_STEPS = 3
-KABSCH_F32_B = 2           # graphs of the float32 card-against-CPU step
+KABSCH_SHORT_STEPS = 1     # steps of KABSCH_SHORT strided steps
+KABSCH_F32_B = 1           # graphs of the float32 card-against-CPU step
 KABSCH_F32_LOSS_RTOL = 1e-3
 # the largest worst-leaf relative L2 seen was 6.2e-4 (batch 4)
 KABSCH_F32_GRAD_REL = 2e-2
@@ -323,6 +340,20 @@ CLI_AMORPHOUS = ["--amorphous", "2", "--generator", "network",
 CLI_TRACE_STEPS = 3        # strided reverse steps under device_trace
 PARAMETERS_JSON = ROOT / "tests" / "fixtures" / "torch_port" / \
     "parameters.json"
+SERVE_RUN = ROOT / "build" / "chip_smoke_serve"
+SERVE_B = 16               # conditions of a served call
+SERVE_STEPS = 250          # strided deterministic steps of the exports
+SERVE_SEED = 7
+DISTILL_STEPS = 500        # the student's steps: one halving of 1000
+DISTILL_EPOCHS = 2
+DISTILL_LR = 5e-5          # examples/distill_eval.py's
+DISTILL_F32_B = 2          # graphs of the float32 card-against-CPU loss
+DISTILL_F32_RTOL = 1e-3
+LATENT_DIM = 32
+LATENT_AE_STEPS = 500      # nn/spectrum_latent.py's default
+LATENT_ENCODE_REL = 1e-5   # float32 encoder, card against CPU
+LATENT_EPOCHS = 2
+LATENT_STEPS = 250
 
 
 def log(record: dict) -> None:
@@ -3475,6 +3506,408 @@ def angle_on_bin_edge(pos, tol_deg: float = 1e-3) -> bool:
     return bool((np.abs(ang - 10.0 * np.round(ang / 10.0)) < tol_deg).any())
 
 
+def served_reading(served, cond, seed: int) -> tuple:
+    """One ``ServedSampler`` call on ``cond``'s spectra: (pos, species,
+    accepted as numpy, launches, ms on the host clock)."""
+    import torch
+
+    reset_counts()
+    t0 = time.perf_counter()
+    out = served(seed, cond.spectrum.cpu().numpy(), cond.exo.cpu().numpy(),
+                 cond.mask.cpu().numpy())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, read_counts(), ms
+
+
+def live_reading(cfg, params: dict, cond, seed: int, device) -> tuple:
+    """``diffusion.sampler.sample`` of a model holding ``params`` with a
+    generator seeded ``seed`` on ``cond``: (pos, species, accepted as
+    numpy, launches)."""
+    import torch
+
+    from diffusion_model_tpu_torch import api
+    from diffusion_model_tpu_torch.diffusion.sampler import sample
+
+    model = api.denoiser_from_params(cfg, params, device)
+    schedule = api.schedule_for(cfg, params, device)
+    reset_counts()
+    res = sample(model, schedule, cfg,
+                 torch.Generator(device=device).manual_seed(seed), cond)
+    counts = read_counts()
+    return ((res.pos.cpu().numpy(), res.species.cpu().numpy(),
+             res.accepted.cpu().numpy()), counts)
+
+
+def phase_served_export(graphs: list, device, card: str) -> dict:
+    """The serving export at the flagship's width: a run directory holding
+    the snapshot's weights (as phase cli_drivers makes it), exported through
+    ``cli.export.main`` at ``SERVE_STEPS`` strided deterministic steps for
+    ``SERVE_B`` conditions with ``--calibrate 2`` (dense, K1), and through
+    ``serve.export_sampler`` with ``neighbor_k=15`` (K2) and with
+    ``retry_rounds`` 2. Each ``ServedSampler`` call on the first
+    ``SERVE_B`` test conditions is bit for bit the live ``sample`` with a
+    generator of the same seed at the run's eval parameters, and the same
+    call again equal, launching its kernel L (steps + 1) times and the
+    other none; the retry export equals the retry-free one where every row
+    is accepted; ms a call (the second, host clock); the launches of the
+    whole phase."""
+    import shutil
+
+    import numpy as np
+
+    from diffusion_model_tpu_torch import api, serve
+    from diffusion_model_tpu_torch.cli import export
+    from diffusion_model_tpu_torch.data.batch import collate
+    from diffusion_model_tpu_torch.train.checkpoint import (
+        load_config_npz,
+        load_params_npz,
+        save_checkpoint,
+    )
+    from diffusion_model_tpu_torch.train.trainer import Trainer, params_tree
+    from diffusion_model_tpu_torch.utils.logging import RunLogger
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(SERVE_RUN, ignore_errors=True)
+    cfg = load_config_npz(str(SNAPSHOT))
+    run = SERVE_RUN / "flagship"
+    RunLogger(str(run), cfg)
+    trainer = Trainer(cfg, device=device)
+    state = trainer.init_state(cfg.seed,
+                               params=load_params_npz(str(SNAPSHOT)),
+                               skip_gamma_fit=True)
+    save_checkpoint(str(run / "checkpoints"), state, cfg, step=0)
+    del trainer, state
+    cond = collate(graphs[:SERVE_B], cfg.n_max, device)
+    served_cfg = cfg.replace(sample_steps=SERVE_STEPS,
+                             deterministic_sampling=True)
+    per_call = cfg.L * (SERVE_STEPS + 1)
+    rec = {"phase": "served_export", "card": card, "batch": SERVE_B,
+           "sample_steps": SERVE_STEPS, "launches_per_call": per_call}
+
+    dense = SERVE_RUN / "dense.pt"
+    reset_counts()
+    t0 = time.perf_counter()
+    export.main([str(a) for a in (
+        "--run_dir", run, "--out", dense, "--batch_size", SERVE_B,
+        "--sample_steps", SERVE_STEPS, "--deterministic", "--calibrate", 2,
+        "--device", device)])
+    rec["cli_export"] = {"s": time.perf_counter() - t0,
+                         "launches": read_counts()}
+    total = {"egcl_pair": 0, "egcl_knn": 0}   # every launch of the phase
+
+    def add(counts):
+        for k in total:
+            total[k] += counts[k]
+        return counts
+
+    add(rec["cli_export"]["launches"])
+    want = {"egcl_pair": 2 * per_call, "egcl_knn": 0, "plain_edge_calls": 0}
+    if rec["cli_export"]["launches"] != want:
+        raise AssertionError(f"cli.export --calibrate 2: {rec['cli_export']}"
+                             f", want {want}")
+    trainer, state = api.load_trained(str(run), served_cfg, device)
+    params = params_tree(state.eval_params(served_cfg))
+    knn_cfg = served_cfg.replace(neighbor_k=SERVED_K)
+    exports = {"dense": (dense, served_cfg, "egcl_pair")}
+    for name, c, rounds in (("knn15", knn_cfg, 0),
+                            ("dense_retry2", served_cfg, 2)):
+        path = SERVE_RUN / f"{name}.pt"
+        serve.export_sampler(c, trainer, state, str(path), SERVE_B,
+                             retry_rounds=rounds)
+        exports[name] = (path, c, "egcl_knn" if c.neighbor_k else
+                         "egcl_pair")
+    calls = {}
+    for name, (path, c, kernel) in exports.items():
+        served = serve.ServedSampler(str(path), device)
+        got, counts, _ = served_reading(served, cond, SERVE_SEED)
+        again, again_counts, ms = served_reading(served, cond, SERVE_SEED)
+        add(counts)
+        add(again_counts)
+        want = {"egcl_pair": 0, "egcl_knn": 0, "plain_edge_calls": 0,
+                kernel: per_call}
+        if name != "dense_retry2":
+            live, live_counts = live_reading(c, params, cond, SERVE_SEED,
+                                             device)
+            add(live_counts)
+            same = all(np.array_equal(a, b) for a, b in zip(got, live))
+            if not same or live_counts != want:
+                raise AssertionError(f"{name}: the served call is not the "
+                                     f"live sampler's ({live_counts})")
+        row = {"launches": counts, "ms_per_call": ms,
+               "accepted": int(got[2].sum()),
+               "finite": int(np.isfinite(got[0]).all(axis=(1, 2)).sum()),
+               "sidecar": served.meta,
+               "repeat_equal": all(np.array_equal(a, b)
+                                   for a, b in zip(got, again))}
+        calls[name] = (got, row)
+        if not row["repeat_equal"]:
+            raise AssertionError(f"{name}: the same call twice differs")
+        if name != "dense_retry2" or got[2].all():
+            if counts != want:
+                raise AssertionError(f"{name}: launches {counts}, want "
+                                     f"{want}")
+        rec[name] = row
+    (raw, _), (retry, row) = calls["dense"], calls["dense_retry2"]
+    acc = raw[2]
+    same = all(np.array_equal(a[acc], b[acc]) for a, b in zip(raw, retry))
+    row["equal_to_retry_free_on_accepted_rows"] = same
+    if not same or (acc.all() and not all(
+            np.array_equal(a, b) for a, b in zip(raw, retry))):
+        raise AssertionError("the retry export parts from the retry-free "
+                             "one on the rows its first draw accepts")
+    rec["bit_for_bit_live"] = ["dense", "knn15"]
+    rec["launches"] = total
+    rec["s"] = time.perf_counter() - t_phase
+    log(rec)
+    return rec
+
+
+def phase_distill(graphs: list, device, card: str) -> dict:
+    """Progressive distillation from the flagship's weights (bf16, batch
+    64 of its train split, the teacher its eval parameters through
+    ``evals.distill_check.snapshot_state``): one halving 1000 -> 500 for
+    ``DISTILL_EPOCHS`` epochs through ``api.distill`` (every logged loss
+    finite; K1 3 L times a step: the teacher's two calls and the student's
+    forward, whose backward is ``ops.edge_grad``'s; ms a step: the median
+    after the first, each on the host clock from a synchronized start);
+    the student sampled on ``SERVE_B`` test
+    conditions at its 500 deterministic steps (finite count read, not
+    gated); one float32 ``distill_loss`` at batch ``DISTILL_F32_B`` on the
+    card against the CPU from the same weights and draws (loss rel
+    ``DISTILL_F32_RTOL``, every gradient leaf's relative L2 within
+    ``KABSCH_F32_GRAD_REL``)."""
+    import numpy as np
+    import torch
+
+    from diffusion_model_tpu_torch import api
+    from diffusion_model_tpu_torch.data.batch import collate
+    from diffusion_model_tpu_torch.data.split import split_dataset
+    from diffusion_model_tpu_torch.diffusion.sampler import sample
+    from diffusion_model_tpu_torch.evals.distill_check import snapshot_state
+    from diffusion_model_tpu_torch.train import distill
+    from diffusion_model_tpu_torch.train.checkpoint import (
+        load_config_npz,
+        load_params_npz,
+    )
+    from diffusion_model_tpu_torch.train.trainer import params_tree
+
+    t_phase = time.perf_counter()
+    base = load_config_npz(str(SNAPSHOT))
+    params = load_params_npz(str(SNAPSHOT))
+    train = split_dataset(flagship_graphs(base), base.seed)[0]
+    cfg, trainer, state = snapshot_state(base, params, device)
+    losses, stamps = [], []
+    gen = torch.Generator(device=device).manual_seed(cfg.seed + 17)
+
+    def noise(student_steps, batch):
+        # api.distill's default draws, each step's start on the host clock
+        # after the card has finished the step before
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return distill.draw(gen, student_steps, batch, cfg.diffuse_species)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    student_cfg, student = api.distill(
+        cfg, trainer, state, train, final_steps=DISTILL_STEPS,
+        epochs_per_phase=DISTILL_EPOCHS, lr=DISTILL_LR,
+        log_fn=lambda line: losses.append(float(line.split()[-1])),
+        noise=noise)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = np.diff(stamps + [time.perf_counter()]) * 1e3
+    counts = read_counts()
+    steps = DISTILL_EPOCHS * -(-len(train) // cfg.batch_size)
+    want = {"egcl_pair": 3 * cfg.L * steps, "egcl_knn": 0,
+            "plain_edge_calls": 0}
+    if counts != want or len(losses) != DISTILL_EPOCHS \
+            or not np.isfinite(losses).all():
+        raise AssertionError(f"distill: launches {counts} (want {want}), "
+                             f"losses {losses}")
+    cond = collate(graphs[:SERVE_B], cfg.n_max, device)
+    model = api.denoiser_from_params(
+        student_cfg, params_tree(student.eval_params(student_cfg)), device)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = sample(model, api.schedule_for(student_cfg, {}, device),
+                 student_cfg, torch.Generator(device=device).manual_seed(0),
+                 cond)
+    torch.cuda.synchronize()
+    sampled = {"steps": student_cfg.sample_steps,
+               "deterministic": student_cfg.deterministic_sampling,
+               "s": time.perf_counter() - t0, "launches": read_counts(),
+               "finite": int(res.finite.sum()),
+               "accepted": int(res.accepted.sum()), "samples": SERVE_B}
+
+    # float32, the card against the CPU from the same weights and draws
+    f32 = base.replace(compute_dtype="float32")
+    small = train[:DISTILL_F32_B]
+    drawn = None
+    sides = []
+    for dev in (device, torch.device("cpu")):
+        teacher = api.denoiser_from_params(f32, params, dev)
+        pupil = distill.fresh_copy(teacher, trainable=True)
+        full = distill.full_phase(api.schedule_for(f32, params, dev))
+        batch = collate(small, f32.n_max, dev)
+        if drawn is None:
+            drawn = distill.draw(torch.Generator().manual_seed(3),
+                                 full.num_steps // 2, batch.map(
+                                     lambda a: a.cpu()), True)
+        draws = distill.DistillDraws(
+            *(d.to(dev) for d in (drawn.j, drawn.pos, drawn.h)))
+        reset_counts()
+        t0 = time.perf_counter()
+        loss = distill.distill_loss(pupil, teacher, f32, full, full.halve(),
+                                    batch, draws=draws)
+        names = dict(pupil.named_parameters())
+        parts = torch.autograd.grad(loss, list(names.values()),
+                                    allow_unused=True)
+        grads = {k: g.cpu() for k, g in zip(names, parts) if g is not None}
+        sides.append((float(loss.detach()), grads,
+                      time.perf_counter() - t0, read_counts()))
+    (l_card, g_card, card_s, f32_counts), (l_cpu, g_cpu, cpu_s, _) = sides
+    gap = {k: rel_l2(g_card[k], g) for k, g in g_cpu.items()
+           if float(g.norm()) > 0}
+    worst = max(gap, key=gap.get)
+    parity = {"batch": DISTILL_F32_B, "loss_card": l_card, "loss_cpu": l_cpu,
+              "loss_rel_gap": abs(l_card - l_cpu) / abs(l_cpu),
+              "largest_leaf_rel_l2": gap[worst], "largest_leaf": worst,
+              "leaves": len(gap), "card_s": card_s, "cpu_s": cpu_s,
+              "launches": f32_counts}
+    if not (math.isfinite(l_card)
+            and parity["loss_rel_gap"] <= DISTILL_F32_RTOL
+            and parity["largest_leaf_rel_l2"] <= KABSCH_F32_GRAD_REL
+            and f32_counts["egcl_pair"] == 3 * f32.L):
+        raise AssertionError(f"the float32 distillation loss on the card "
+                             f"parts from the CPU's: {parity}")
+    rec = {"phase": "distill", "card": card, "teacher": str(
+        SNAPSHOT.relative_to(ROOT)), "halving": [1000, DISTILL_STEPS],
+        "epochs": DISTILL_EPOCHS, "batch": cfg.batch_size,
+        "compute_dtype": cfg.compute_dtype, "lr": DISTILL_LR,
+        "train_graphs": len(train), "steps": steps, "losses": losses,
+        "launches": counts, "k1_launches_per_step": counts["egcl_pair"]
+        / steps, "wall_s": wall, "first_step_ms": float(step_ms[0]),
+        "ms_per_step": float(np.median(step_ms[1:])),
+        "student_sampled": sampled, "float32": parity,
+        "s": time.perf_counter() - t_phase}
+    log(rec)
+    return rec
+
+
+def phase_spectrum_latent(device, card: str) -> dict:
+    """The spectrum-latent conditioning path on the flagship's data (its
+    256 graphs' 200-wide spectra): ``pretrain_autoencoder`` for
+    ``LATENT_AE_STEPS`` full-batch steps at latent ``LATENT_DIM`` on the
+    card (ms, final MSE against the spectra's variance); ``encode_dataset``
+    on the card against the same encoder on the CPU (relative L2
+    ``LATENT_ENCODE_REL``); a fresh latent-conditioned model at the
+    flagship's widths (``spectrum_to_latent``, no compressor, node width
+    36) trained ``LATENT_EPOCHS`` epochs through ``api.train`` on K1 (5
+    launches a forward, losses finite), then ``SERVE_B`` of its test
+    conditions sampled at ``LATENT_STEPS`` strided steps with no redraw
+    (finite count read, not gated: a model 2 epochs from init samples no
+    finite chain, C1)."""
+    import copy
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from diffusion_model_tpu_torch import api
+    from diffusion_model_tpu_torch.data.batch import collate
+    from diffusion_model_tpu_torch.diffusion.sampler import sample
+    from diffusion_model_tpu_torch.nn.denoiser import DiffusionDenoiser
+    from diffusion_model_tpu_torch.nn.spectrum_latent import (
+        encode_dataset,
+        pretrain_autoencoder,
+    )
+    from diffusion_model_tpu_torch.train.checkpoint import load_config_npz
+    from diffusion_model_tpu_torch.train.trainer import params_tree
+
+    t_phase = time.perf_counter()
+    base = load_config_npz(str(SNAPSHOT))
+    graphs = flagship_graphs(base)
+    spectra = np.stack([g["spectrum"][0] for g in graphs])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    enc, _, mse = pretrain_autoencoder(spectra, LATENT_DIM,
+                                       steps=LATENT_AE_STEPS, seed=base.seed,
+                                       device=device)
+    torch.cuda.synchronize()
+    ae = {"steps": LATENT_AE_STEPS, "latent_dim": LATENT_DIM,
+          "spectra": list(spectra.shape), "final_mse": mse,
+          "spectra_var": float(spectra.var()),
+          "ms_per_step": (time.perf_counter() - t0) * 1e3 / LATENT_AE_STEPS}
+    if not (math.isfinite(mse) and mse < ae["spectra_var"]):
+        raise AssertionError(f"the autoencoder did not train: {ae}")
+    encoded = encode_dataset(graphs, enc)
+    on_cpu = encode_dataset(graphs, copy.deepcopy(enc).cpu())
+    card_lat = torch.as_tensor(np.concatenate([g["spectrum"]
+                                               for g in encoded]))
+    cpu_lat = torch.as_tensor(np.concatenate([g["spectrum"]
+                                              for g in on_cpu]))
+    ae["encode_rel_l2_card_cpu"] = rel_l2(card_lat, cpu_lat)
+    off_node0 = max(float(np.abs(g["spectrum"][1:]).max(initial=0.0))
+                    for g in encoded)
+    if ae["encode_rel_l2_card_cpu"] > LATENT_ENCODE_REL or off_node0:
+        raise AssertionError(f"encode_dataset on the card: {ae}")
+
+    cfg = base.replace(spectrum_to_latent=True, to_compress_spectrum=False,
+                       latent_dim=LATENT_DIM)
+    run_dir = SERVE_RUN / "latent"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    forwards = []
+    hook = torch.nn.modules.module.register_module_forward_hook(
+        lambda m, i, o: forwards.append(1)
+        if isinstance(m, DiffusionDenoiser) else None)
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        trainer, state, (_, _, test) = api.train(
+            cfg, encoded, str(run_dir), num_epochs=LATENT_EPOCHS,
+            device=device)
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    train_s = time.perf_counter() - t0
+    counts = read_counts()
+    lines = [json.loads(x) for x in open(run_dir / "metrics.jsonl")]
+    losses = [r["train_loss"] for r in lines if "train_loss" in r]
+    want = {"egcl_pair": cfg.L * len(forwards), "egcl_knn": 0,
+            "plain_edge_calls": 0}
+    if counts != want or len(losses) != LATENT_EPOCHS \
+            or not np.isfinite(losses).all():
+        raise AssertionError(f"latent training: launches {counts} (want "
+                             f"{want}), losses {losses}")
+    s_cfg = cfg.replace(sample_steps=LATENT_STEPS)
+    model = api.denoiser_from_params(
+        s_cfg, params_tree(state.eval_params(cfg)), device)
+    cond = collate(test[:SERVE_B], cfg.n_max, device)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = sample(model, api.schedule_for(s_cfg, {}, device), s_cfg,
+                 torch.Generator(device=device).manual_seed(0), cond)
+    torch.cuda.synchronize()
+    sampled = {"steps": LATENT_STEPS, "s": time.perf_counter() - t0,
+               "launches": read_counts(), "finite": int(res.finite.sum()),
+               "accepted": int(res.accepted.sum()), "samples": SERVE_B}
+    if sampled["launches"]["egcl_pair"] != cfg.L * (LATENT_STEPS + 1):
+        raise AssertionError(f"latent sampling launches: {sampled}")
+    rec = {"phase": "spectrum_latent", "card": card, "autoencoder": ae,
+           "h_size": cfg.h_size, "train": {
+               "epochs": LATENT_EPOCHS, "losses": losses, "s": train_s,
+               "forwards": len(forwards), "launches": counts,
+               "steps": state.step},
+           "sampled": sampled,
+           "launches": {"egcl_pair": counts["egcl_pair"]
+                        + sampled["launches"]["egcl_pair"]},
+           "s": time.perf_counter() - t_phase}
+    log(rec)
+    return rec
+
+
 def edge_flops(f1: int, fm: int, h: int = 0) -> int:
     """Tensor-core FLOPs of one live edge: both second-layer products, and
     for K2 the j-side first layer (4 H F1)."""
@@ -3790,6 +4223,11 @@ def main() -> int:
     polymorph = kernels_only("polymorph_pipeline", phase_polymorph_pipeline,
                              device, card)
     drivers = kernels_only("cli_drivers", phase_cli_drivers, device, card)
+    served_export = kernels_only("served_export", phase_served_export,
+                                 graphs, device, card)
+    distilled = kernels_only("distill", phase_distill, graphs, device, card)
+    latent = kernels_only("spectrum_latent", phase_spectrum_latent, device,
+                          card)
     log({"phase": "flagship_routes", "plain_edge_calls": plain_calls,
          "egcl_pair_launches_served": pair_launches,
          "egcl_knn_launches_served": knn_launches,
@@ -3815,6 +4253,11 @@ def main() -> int:
          "polymorph_launches": polymorph["generate"]["launches"][
              "egcl_pair"],
          "cli_drivers_launches": drivers["k1_launches"],
+         "served_launches": served_export["launches"]["egcl_pair"],
+         "distill_launches": distilled["launches"]["egcl_pair"]
+         + distilled["student_sampled"]["launches"]["egcl_pair"]
+         + distilled["float32"]["launches"]["egcl_pair"],
+         "latent_launches": latent["launches"]["egcl_pair"],
          "train_grad": grads["egcl_pair_64x16_bfloat16"]},
         {"name": "egcl_knn", "route": "cuda",
          "source": "diffusion_model_tpu_torch/csrc/egcl_knn.cu",
@@ -3825,6 +4268,7 @@ def main() -> int:
          "variants_launches": variants["egcl_knn"],
          "kabsch_launches": kabsch["launches"]["egcl_knn"],
          "cli_drivers_launches": drivers["k2_launches"],
+         "served_launches": served_export["launches"]["egcl_knn"],
          "train_grad": grads["egcl_knn_64x16_k15_bfloat16"]},
         *probes,
     ]})

@@ -10,6 +10,9 @@ generation from a snapshot or a run, and the run's evaluation.
     trainer, state = load_trained(run_dir, cfg)
     out = generate(cfg, params_tree(state.eval_params(cfg)), test)
     evaluate(out, run_dir)          # sorted RMSD, O density, figures
+    student_cfg, student = distill(cfg, trainer, state, train, 125)
+    out = generate(student_cfg, params_tree(student.eval_params(student_cfg)),
+                   test)            # the 125-step deterministic student
 
     cfg = load_config_npz(path)
     params = load_params_npz(path)
@@ -42,6 +45,7 @@ import torch
 from diffusion_model_tpu_torch.config import Config
 from diffusion_model_tpu_torch.data.batch import collate
 from diffusion_model_tpu_torch.data.split import (
+    batch_iterator,
     device_batch_iterator,
     split_dataset,
 )
@@ -73,6 +77,10 @@ from diffusion_model_tpu_torch.train.checkpoint import (
     save_checkpoint,
     save_params_npz,
     state_dict_from_flax,
+)
+from diffusion_model_tpu_torch.train.distill import (
+    DistillDraws,
+    progressive_distill,
 )
 from diffusion_model_tpu_torch.train.loss import TrainNoise
 from diffusion_model_tpu_torch.train.trainer import (
@@ -251,6 +259,53 @@ def load_trained(run_dir: str, cfg: Config, device=None):
             f"{saved.x_parameterization!r}, cfg has "
             f"{cfg.x_parameterization!r}")
     return trainer, state
+
+
+def distill(cfg: Config, trainer: Trainer, state: TrainState,
+            train_graphs: list, final_steps: int, epochs_per_phase: int = 50,
+            lr: float = 1e-4, generator: Optional[torch.Generator] = None,
+            log_fn: Callable[[str], None] = print,
+            noise: Optional[Callable[[int, object], DistillDraws]] = None):
+    """Progressively distil the trained model into a ``final_steps``
+    deterministic student (``train.distill``), as
+    ``diffusion_model_tpu.api.distill``: the teacher is
+    ``state.eval_params(cfg)`` on ``trainer.device``, its schedule table
+    ``schedule_for``; every epoch re-reads ``batch_iterator(train_graphs,
+    cfg.batch_size, cfg.n_max, seed=cfg.seed)``; the draws come from
+    ``generator`` (default seeded ``cfg.seed + 17`` on the device) unless
+    ``noise`` gives them.
+
+    Returns ``(student_cfg, student_state)`` for ``generate``: the config
+    pins the grid the student was distilled on (``sample_steps``,
+    ``deterministic_sampling``, ``sample_grid="uniform"``) with
+    ``optimizer="Adam"`` and ``ema_decay=0``, so that
+    ``student_state.eval_params`` (``opt_state`` None) is the identity; the
+    state holds the student denoiser and the teacher's ``gamma.*``."""
+    device = trainer.device
+    if generator is None and noise is None:
+        generator = torch.Generator(device=device).manual_seed(cfg.seed + 17)
+    params = state.eval_params(cfg)
+    tree = params_tree(params)
+    model = denoiser_from_params(cfg, tree, device)
+    with torch.no_grad():
+        schedule = schedule_for(cfg, tree, device)
+
+    def batches_fn():
+        return batch_iterator(train_graphs, cfg.batch_size, cfg.n_max,
+                              seed=cfg.seed, device=device)
+
+    result = progressive_distill(
+        cfg, model, schedule, batches_fn, final_steps=final_steps,
+        epochs_per_phase=epochs_per_phase, lr=lr, log_fn=log_fn,
+        generator=generator, noise=noise)
+    student = {k: v for k, v in params.items()
+               if not k.startswith("denoiser.")}
+    student.update({f"denoiser.{k}": v for k, v in result.params.items()})
+    student_cfg = cfg.replace(sample_steps=result.num_steps,
+                              deterministic_sampling=True,
+                              sample_grid="uniform", optimizer="Adam",
+                              ema_decay=0.0)
+    return student_cfg, TrainState(params=student, opt_state=None)
 
 
 def denoiser_from_params(cfg: Config, params: dict, device,

@@ -43,7 +43,7 @@ from diffusion_model_tpu_torch.utils.logging import RunLogger, load_run_config
 
 RING_NOT_PORTED = (
     "--ring samples through the node-sharded ring (api.generate_ring), "
-    "which is not ported yet: ROADMAP.md queue 1 item 9")
+    "which is not ported yet: ROADMAP.md queue 1 item 9e")
 
 
 def parser() -> argparse.ArgumentParser:

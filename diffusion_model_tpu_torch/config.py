@@ -11,7 +11,8 @@ a field here, so a config round-trips. What the port does with each:
   topology; the predefined or the learned noise schedule; the optimizers,
   the loss's levers and the Kabsch coordinate loss (``kabsch_loss``,
   ``kabsch_loss_steps``, ``kabsch_loss_weight``), the initialisers,
-  ``remat_egcl``, ``checkpoint_every`` and ``debug_nans``);
+  ``remat_egcl``, ``checkpoint_every`` and ``debug_nans``; the
+  spectrum-latent conditioning, ``spectrum_to_latent`` / ``latent_dim``);
 - ``Config`` raises ``NotImplementedError``, naming the field, for a value
   of ``_SUPPORTED`` whose code path the port does not have yet;
 - the fields of ``JAX_ONLY`` no code of the port reads: the table says for
@@ -37,7 +38,6 @@ import torch
 # (field, value the port supports): any other value raises.
 _SUPPORTED = (
     ("ring_sample", False),
-    ("spectrum_to_latent", False),
     ("x_size", 3),
     ("d_size", 1),
 )
@@ -48,8 +48,6 @@ _SUPPORTED = (
 JAX_ONLY = {
     "x_size": ("refused", "positions are 3-D throughout the port"),
     "d_size": ("refused", "the edge MLPs take one squared-distance feature"),
-    "latent_dim": ("inert", "read only with spectrum_to_latent, which "
-                   "_SUPPORTED refuses"),
     "mesh_axis_names": ("inert", "read only with a mesh_shape, which "
                         "train.Trainer refuses; generation runs on one "
                         "device"),
@@ -154,8 +152,9 @@ class Config:
     global_radius_feature: bool = False
 
     # the coordinate update divided by one Frobenius norm of the pair grid
-    # per graph (dense topology only); the variants after it the port
-    # rejects (see _SUPPORTED)
+    # per graph (dense topology only); ring_sample the port rejects (see
+    # _SUPPORTED); spectrum_to_latent: the graphs' spectra are latents of
+    # latent_dim on node 0 (nn.spectrum_latent.encode_dataset)
     compat_scalar_norm: bool = False
     ring_sample: bool = False
     spectrum_to_latent: bool = False
@@ -196,10 +195,28 @@ class Config:
 
     @property
     def cond_spectrum_size(self) -> int:
+        """Width of the spectrum columns of the node features: the
+        compressor's output, the latent (``spectrum_to_latent``: the graphs
+        carry ``nn.spectrum_latent.encode_dataset``'s latents), or the raw
+        spectrum."""
         if not self.conditional:
             return 0
+        if self.spectrum_to_latent:
+            if self.to_compress_spectrum:
+                raise ValueError(
+                    "spectrum_to_latent and to_compress_spectrum exclude "
+                    "each other: the latent replaces the compressed "
+                    "spectrum")
+            return self.latent_dim
         return (self.compressed_spectrum_size if self.to_compress_spectrum
                 else self.spectrum_size)
+
+    @property
+    def spectrum_input_size(self) -> int:
+        """Width of the spectrum a denoiser call takes: the latent for
+        ``spectrum_to_latent``, else ``spectrum_size``."""
+        return self.latent_dim if self.spectrum_to_latent \
+            else self.spectrum_size
 
     @property
     def h_size(self) -> int:

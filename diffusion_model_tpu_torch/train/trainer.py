@@ -70,7 +70,7 @@ from diffusion_model_tpu_torch.train.loss import (
 # ROADMAP.md queue 1 item that holds each.
 _NOT_PORTED = (
     ("mesh_shape", "data-parallel training on a mesh (DDP, with the ring), "
-     "ROADMAP.md queue 1 item 9"),
+     "ROADMAP.md queue 1 item 9d"),
 )
 
 
@@ -402,7 +402,7 @@ class Trainer:
     def ring_train_step_fn(self, *args, **kwargs):
         raise NotImplementedError(
             "ring (node-sharded) training is not ported: ROADMAP.md queue 1 "
-            "item 9")
+            "item 9e")
 
     # -- epochs --------------------------------------------------------
     def train_epoch(self, state: TrainState, noise,

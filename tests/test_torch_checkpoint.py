@@ -90,7 +90,7 @@ def test_large_cell_settings_carry_over(field, value):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("ring_sample", True), ("spectrum_to_latent", True),
+    ("ring_sample", True),
 ])
 def test_unported_settings_raise_naming_the_field(field, value):
     d = {field: value}
@@ -209,7 +209,7 @@ def test_every_jax_field_is_a_port_field_or_in_the_table():
     # the fields no code of the port reads are each in the table, with
     # what the port does with them and why
     assert set(port_config.JAX_ONLY) == {
-        "x_size", "d_size", "latent_dim", "use_pallas", "mesh_axis_names"}
+        "x_size", "d_size", "use_pallas", "mesh_axis_names"}
     for name, (how, why) in port_config.JAX_ONLY.items():
         assert how in ("refused", "inert") and why, name
     assert not set(HONOURED_SINCE_F6) & set(port_config.JAX_ONLY)
@@ -226,7 +226,8 @@ def test_refused_jax_fields_raise_naming_the_field(field, value):
 
 @pytest.mark.parametrize("field,value", [
     ("kabsch_loss_steps", 50), ("kabsch_loss_weight", 0.5),
-    ("latent_dim", 16), ("use_pallas", True), ("edge_rbf_rmax", 6.0),
+    ("latent_dim", 16), ("spectrum_to_latent", True), ("use_pallas", True),
+    ("edge_rbf_rmax", 6.0),
     ("mesh_axis_names", ["batch"]), ("checkpoint_every", 7),
     ("debug_nans", True)])
 def test_other_jax_fields_carry_over(field, value):

@@ -50,7 +50,9 @@ def test_every_module_is_listed():
                      "cli.template_matching", "cli.evaluate_rdf",
                      "cli.evaluate_rmsd", "cli.evaluate_cn2",
                      "cli.evaluate_si_o_si", "cli.evaluate_fingerprint",
-                     "cli.generate_amorphous", "cli.cn"):
+                     "cli.generate_amorphous", "cli.cn", "serve",
+                     "cli.export", "train.distill", "nn.spectrum_latent",
+                     "evals.distill_check"):
         assert f"diffusion_model_tpu_torch.{expected}" in names
 
 
