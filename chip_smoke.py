@@ -204,7 +204,24 @@ Phases, each printed as one JSON line:
      the flagship data's 200-wide spectra, ``encode_dataset`` card against
      CPU, a fresh latent-conditioned model at the flagship's widths trained
      2 epochs on K1 and sampled on 16 conditions at 250 strided steps with
-     no redraw (finite count read, not gated).
+     no redraw (finite count read, not gated);
+ 30. data_parallel, in an NCCL world of one in this process
+     (``parallel.init_single``): ``api.train`` on the flagship's recipe
+     with ``mesh_shape=(1,)`` for 2 epochs against the same run without a
+     mesh, ``metrics.jsonl`` and the final state bit for bit (within the
+     card's own spread where a second run without a mesh differs), K1 50
+     times as in phase 17, ms an epoch beside phase 17's;
+ 31. ring, in the same world: the flagship's weights on a 256-atom
+     ``amorphous_cell``, dense topology, one graph: ``ring_denoise_fn``
+     against the dense denoiser (K1) in float32 (rtol 2e-4 / atol 2e-5 of
+     the output's scale; bf16 read), ``api.generate_ring`` at 250 strided
+     steps beside ``api.generate`` on the same cell (ms a denoiser call, s
+     a structure), and one ``ring_train_step_fn`` step against the dense
+     step from the same state and draws in float32 (loss rtol 1e-4, leaves
+     rtol 2e-3 / atol 2e-6; peak memory). The ring's edge work is the plain
+     PyTorch statement, as the JAX package's ring is plain ``jnp``: it
+     launches no kernel, and ``parallel.ring.ring_edge_calls`` counts it
+     apart from ``plain_edge_calls``.
 
 Any failed check raises, and the script exits non-zero without its result
 line. The last lines are the kernel table (with each kernel's bound: its
@@ -354,6 +371,16 @@ LATENT_AE_STEPS = 500      # nn/spectrum_latent.py's default
 LATENT_ENCODE_REL = 1e-5   # float32 encoder, card against CPU
 LATENT_EPOCHS = 2
 LATENT_STEPS = 250
+RING_ATOMS = 256           # the ring phase's cell (amorphous_cell, seed 0)
+RING_STEPS = 250           # strided steps of its generation
+RING_REPS = 3              # timed forwards of each route
+RING_NOISE_SEED = 11       # TrainNoise of its train steps
+# the ring phase scales the flagship's coordinate head (mlp_x_dense2) by
+# this: unscaled, a model trained on <= 16-atom environments moves a
+# 256-atom cell's coordinates out of the finite range in 5 layers (|eps_x|
+# 4.9e26 on the card; on the CPU in float32 4.9e26 at 1, 5.2e10 at 0.1, 47.8
+# at 0.01, 2.6 at 1e-3), and a comparison of infinities holds nothing
+RING_X_SCALE = 1e-3
 
 
 def log(record: dict) -> None:
@@ -1656,11 +1683,11 @@ def phase_checkpoint_resume(device, card: str) -> dict:
     first = {}
     epoch_fn = trainer_module.Trainer.train_epoch
 
-    def recording(self, state, noise, batches):
+    def recording(self, state, noise, batches, mesh=None):
         first.setdefault("params", {k: p.detach().clone()
                                     for k, p in state.params.items()})
         first.setdefault("step", state.step)
-        return epoch_fn(self, state, noise, batches)
+        return epoch_fn(self, state, noise, batches, mesh)
 
     trainer_module.Trainer.train_epoch = recording
     try:
@@ -3908,6 +3935,278 @@ def phase_spectrum_latent(device, card: str) -> dict:
     return rec
 
 
+def phase_data_parallel(device, card: str, phase17: dict) -> dict:
+    """``api.train`` with the flagship's recipe (bf16, dense K1, batch 64)
+    from a fresh init for ``TRAIN_EPOCHS`` epochs with ``mesh_shape=(1,)``
+    in this process's NCCL world of one, against the same run without a
+    mesh: ``metrics.jsonl`` (but its clock) and the final state bit for bit
+    (a sum over one rank is the identity), or, where the card itself is not
+    deterministic (a second run without a mesh differs), within
+    ``RESUME_SPREAD`` times that gap, leaf for leaf. K1 launched 5 times a
+    forward, as phase 17's run (50); ms an epoch beside phase 17's."""
+    import json
+    import shutil
+
+    import torch
+
+    from diffusion_model_tpu_torch import api
+    from diffusion_model_tpu_torch.ops import egcl_pair
+    from diffusion_model_tpu_torch.train.checkpoint import load_config_npz
+
+    cfg = load_config_npz(str(SNAPSHOT))
+    graphs = flagship_graphs(cfg)
+    root = TRAIN_RUN / "data_parallel"
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run(name, run_cfg):
+        egcl_pair.egcl_pair_launches = 0
+        t0 = time.perf_counter()
+        _, state, _ = api.train(run_cfg, graphs, str(root / name),
+                                num_epochs=TRAIN_EPOCHS, device=device)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lines = [json.loads(x) for x in open(root / name / "metrics.jsonl")]
+        epoch_ms = [1e3 * r.pop("epoch_s") for r in lines if "epoch_s" in r]
+        for r in lines:
+            r.pop("time", None)
+        return {"state": state, "lines": lines, "wall_s": wall,
+                "ms_per_epoch": epoch_ms,
+                "egcl_pair": egcl_pair.egcl_pair_launches}
+
+    plain = run("plain", cfg)
+    mesh = run("mesh", cfg.replace(mesh_shape=(1,)))
+    gap = leaf_gap(mesh["state"], plain["state"])
+    rec = {"phase": "data_parallel", "card": card, "world_size": 1,
+           "backend": "nccl", "epochs": TRAIN_EPOCHS,
+           "launches": {"egcl_pair": mesh["egcl_pair"]},
+           "launches_without_mesh": plain["egcl_pair"],
+           "launches_phase_17": phase17["launches"]["egcl_pair"],
+           "metrics_equal": mesh["lines"] == plain["lines"],
+           "max_leaf_gap": max(gap.values()),
+           "ms_per_epoch": mesh["ms_per_epoch"],
+           "ms_per_epoch_without_mesh": plain["ms_per_epoch"],
+           "ms_per_epoch_phase_17": [
+               1e3 * json.loads(x)["epoch_s"]
+               for x in open(TRAIN_RUN / "dense" / "metrics.jsonl")
+               if "epoch_s" in x],
+           "wall_s": mesh["wall_s"], "wall_s_without_mesh": plain["wall_s"]}
+    off = [k for k, v in gap.items() if v != 0.0]
+    if off or not rec["metrics_equal"]:
+        again = run("plain_again", cfg)
+        card_gap = leaf_gap(again["state"], plain["state"])
+        rec["card_deterministic"] = max(card_gap.values()) == 0.0
+        rec["plain_vs_plain_max_leaf_gap"] = max(card_gap.values())
+        off = [k for k, v in gap.items() if v > RESUME_SPREAD * card_gap[k]]
+        if rec["card_deterministic"] and not rec["metrics_equal"]:
+            off.append("metrics.jsonl")
+    else:
+        rec["card_deterministic"] = None
+    log(rec)
+    if off:
+        raise AssertionError(f"the run on a mesh of one is off the run "
+                             f"without one at {off[:5]}")
+    want = phase17["launches"]["egcl_pair"]
+    if not mesh["egcl_pair"] == plain["egcl_pair"] == want:
+        raise AssertionError(f"K1 launches {mesh['egcl_pair']} (without "
+                             f"the mesh {plain['egcl_pair']}), want {want}")
+    return rec
+
+
+def ring_cell(cfg, device, seed: int = 0):
+    """The flagship's inputs on ``amorphous_cell(seed, RING_ATOMS)`` at
+    ``n_max`` ``RING_ATOMS``, one graph: noised species and positions from a
+    numpy seed, t/T 0.5; float32 on ``device``."""
+    import numpy as np
+    import torch
+
+    from diffusion_model_tpu_torch.data.batch import collate
+    from diffusion_model_tpu_torch.data.synthetic import amorphous_cell
+
+    cell = amorphous_cell(seed=seed, num_atoms=RING_ATOMS,
+                          spectrum_size=cfg.spectrum_size)
+    batch = collate([cell], RING_ATOMS, device)
+    rng = np.random.default_rng(seed)
+    m3 = batch.mask.unsqueeze(-1)
+    noise = torch.from_numpy(rng.normal(size=(1, RING_ATOMS, 3)).astype(
+        np.float32)).to(device)
+    species = batch.species + 0.5 * torch.from_numpy(rng.normal(
+        size=batch.species.shape).astype(np.float32)).to(device)
+    return cell, batch, (species * m3, (batch.pos + 0.3 * noise) * m3,
+                         batch.spectrum, batch.exo, 0.5 * m3, batch.mask)
+
+
+def ring_params(params: dict) -> dict:
+    """The flagship's parameter tree with each layer's coordinate head
+    (``mlp_x_dense2``) scaled by ``RING_X_SCALE``."""
+    import copy
+
+    out = copy.deepcopy(params)
+    for layer in out["denoiser"]["params"]["egnn"].values():
+        for k in ("kernel", "bias"):
+            layer["mlp_x_dense2"][k] = layer["mlp_x_dense2"][k] * RING_X_SCALE
+    return out
+
+
+def phase_ring(params: dict, device, card: str) -> dict:
+    """The ring (``parallel.ring``) in this process's NCCL world of one at
+    the flagship's width on ``amorphous_cell(seed=0, num_atoms=256)``,
+    ``n_max`` 256, one graph, dense topology, the flagship's weights with
+    the coordinate head scaled (``ring_params``): (a) ``ring_denoise_fn``
+    against the dense denoiser (K1) in float32, rtol 2e-4 / atol 2e-5 of
+    the output's scale, and in bf16 (read); (b) ``api.generate_ring``, one
+    condition x 1 at 250 strided steps, ms a denoiser call and s a
+    structure, beside ``api.generate`` on the dense route on the same cell
+    (no redraws: a timed path draws once);
+    (c) one ``ring_train_step_fn`` step against the dense train step from
+    the flagship's state on the same draws, float32: loss rtol 1e-4, every
+    leaf rtol 2e-3 / atol 2e-6, with peak memory. The ring launches no
+    kernel; its plain edge calls are counted in ``ring.ring_edge_calls``."""
+    import numpy as np
+    import torch
+
+    from diffusion_model_tpu_torch import api, parallel
+    from diffusion_model_tpu_torch.nn import egnn
+    from diffusion_model_tpu_torch.ops import egcl_pair
+    from diffusion_model_tpu_torch.parallel import ring
+    from diffusion_model_tpu_torch.train.checkpoint import load_config_npz
+    from diffusion_model_tpu_torch.train.loss import TrainNoise
+    from diffusion_model_tpu_torch.train.trainer import Trainer
+
+    base = load_config_npz(str(SNAPSHOT)).replace(n_max=RING_ATOMS,
+                                                  max_nan_retries=0)
+    params = ring_params(params)
+    mesh = parallel.make_mesh()
+    rec = {"phase": "ring", "card": card, "world_size": mesh.size,
+           "atoms": RING_ATOMS, "n_max": RING_ATOMS,
+           "coordinate_head_scale": RING_X_SCALE}
+    t_start = time.perf_counter()
+
+    # (a) the forward, float32 and bf16
+    forward = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = base.replace(compute_dtype=dtype)
+        model = api.denoiser_from_params(cfg, params, device)
+        _, _, args = ring_cell(cfg, device)
+        fn = ring.ring_denoise_fn(cfg, model, mesh)
+        with torch.no_grad():
+            dense = [o[0] for o in model(*args)]
+            ring.ring_edge_calls = 0
+            got = fn(*(a[0] for a in args))
+            torch.cuda.synchronize()
+        row = {"ring_edge_calls": ring.ring_edge_calls}
+        for name, g, d in zip(("eps_x", "eps_h"), got, dense):
+            scale = float(d.abs().max())
+            row[name] = {"max_abs_err": float((g - d).abs().max()),
+                         "scale": scale, "rel_l2": rel_l2(g, d),
+                         "within": math.isfinite(scale) and bool(
+                             ((g - d).abs() <= 2e-5 * scale
+                              + 2e-4 * d.abs()).all())}
+        row["ring_ms"] = cuda_ms(lambda: fn(*(a[0] for a in args)),
+                                 RING_REPS)
+        row["dense_ms"] = cuda_ms(lambda: model(*args), RING_REPS)
+        forward[dtype] = row
+    rec["forward"] = forward
+
+    # (b) generation through the ring and on the dense route
+    cfg = base.replace(sample_steps=RING_STEPS)
+    cell, _, _ = ring_cell(cfg, device)
+    generated = {}
+    for route in ("ring", "dense"):
+        model, calls = counting_model(cfg, params, device)
+        egcl_pair.egcl_pair_launches = 0
+        ring.ring_edge_calls = 0
+        gen = torch.Generator(device=device).manual_seed(cfg.seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if route == "ring":
+            out = api.generate_ring(cfg, model, [dict(cell, id="cell")],
+                                    generator=gen, gen_num_per_spectrum=1,
+                                    mesh=mesh)
+        else:
+            out = api.generate(cfg, model, [dict(cell, id="cell")],
+                               generator=gen, gen_num_per_spectrum=1,
+                               batch_size=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        # the ring reads the model's parameters and never calls it
+        n_calls = (ring.ring_edge_calls // cfg.L if route == "ring"
+                   else calls[0])
+        generated[route] = {
+            "s_per_structure": wall, "denoiser_calls": n_calls,
+            "ms_per_denoiser_call": 1e3 * wall / max(n_calls, 1),
+            "egcl_pair_launches": egcl_pair.egcl_pair_launches,
+            "ring_edge_calls": ring.ring_edge_calls,
+            "finite": int(np.asarray(out["finite"]).sum()),
+            "shape": list(out["generated_pos"].shape)}
+    rec["generate"] = generated
+
+    # (c) one train step through the ring against the dense one, float32
+    cfg = base.replace(compute_dtype="float32", batch_size=1)
+    _, batch, _ = ring_cell(cfg, device)
+    steps = {}
+    for route in ("ring", "dense"):
+        trainer = Trainer(cfg, device=device)
+        state = trainer.init_state(cfg.seed, params=params,
+                                   skip_gamma_fit=True)
+        step = (trainer.ring_train_step_fn(mesh) if route == "ring"
+                else trainer.train_step)
+        egcl_pair.egcl_pair_launches = 0
+        ring.ring_edge_calls = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        state, m = step(state, TrainNoise(RING_NOISE_SEED, device), batch)
+        torch.cuda.synchronize()
+        steps[route] = {"state": state, "loss": float(m["loss"]),
+                        "ms": 1e3 * (time.perf_counter() - t0),
+                        "max_memory_allocated_bytes":
+                            torch.cuda.max_memory_allocated(device),
+                        "egcl_pair_launches": egcl_pair.egcl_pair_launches,
+                        "ring_edge_calls": ring.ring_edge_calls}
+    off = []
+    worst = 0.0
+    for k, want in steps["dense"]["state"].params.items():
+        got = steps["ring"]["state"].params[k].detach()
+        want = want.detach()
+        err = (got - want).abs()
+        if not bool((err <= 2e-6 + 2e-3 * want.abs()).all()):
+            off.append(k)
+        worst = max(worst, float((err / (2e-6 + 2e-3 * want.abs())).max()))
+    loss_rel = abs(steps["ring"]["loss"] - steps["dense"]["loss"]) / abs(
+        steps["dense"]["loss"])
+    rec["train_step"] = {
+        route: {k: v for k, v in s.items() if k != "state"}
+        for route, s in steps.items()}
+    rec["train_step"].update({"loss_rel_err": loss_rel,
+                              "worst_leaf_over_tolerance": worst,
+                              "leaves_off": off[:5]})
+    rec["ring_edge_calls_in_plain_edge_calls"] = egnn.plain_edge_calls
+    rec["wall_s"] = time.perf_counter() - t_start
+    log(rec)
+
+    bad = [d for d, r in forward.items() if d == "float32"
+           and not (r["eps_x"]["within"] and r["eps_h"]["within"])]
+    if bad:
+        raise AssertionError(f"the ring's float32 forward is off the dense "
+                             f"one: {forward['float32']}")
+    for route, row in generated.items():
+        kernel = row["egcl_pair_launches"] if route == "dense" else \
+            row["ring_edge_calls"]
+        if (row["denoiser_calls"] != RING_STEPS + 1
+                or kernel != base.L * (RING_STEPS + 1)
+                or row["shape"] != [1, RING_ATOMS, 3]
+                or (route == "ring" and row["egcl_pair_launches"])):
+            raise AssertionError(f"{route} generation: {row}")
+    if not (math.isfinite(steps["dense"]["loss"]) and loss_rel <= 1e-4) \
+            or off:
+        raise AssertionError(f"the ring's train step is off the dense one: "
+                             f"{rec['train_step']}")
+    if steps["ring"]["egcl_pair_launches"] or \
+            steps["ring"]["ring_edge_calls"] != base.L:
+        raise AssertionError(f"the ring's train step: {rec['train_step']}")
+    return rec
+
+
 def edge_flops(f1: int, fm: int, h: int = 0) -> int:
     """Tensor-core FLOPs of one live edge: both second-layer products, and
     for K2 the j-side first layer (4 H F1)."""
@@ -4228,6 +4527,15 @@ def main() -> int:
     distilled = kernels_only("distill", phase_distill, graphs, device, card)
     latent = kernels_only("spectrum_latent", phase_spectrum_latent, device,
                           card)
+    from diffusion_model_tpu_torch import parallel
+
+    parallel.init_single("nccl")
+    try:
+        data_parallel = kernels_only("data_parallel", phase_data_parallel,
+                                     device, card, dense_train)
+        kernels_only("ring", phase_ring, params, device, card)
+    finally:
+        torch.distributed.destroy_process_group()
     log({"phase": "flagship_routes", "plain_edge_calls": plain_calls,
          "egcl_pair_launches_served": pair_launches,
          "egcl_knn_launches_served": knn_launches,
@@ -4258,6 +4566,7 @@ def main() -> int:
          + distilled["student_sampled"]["launches"]["egcl_pair"]
          + distilled["float32"]["launches"]["egcl_pair"],
          "latent_launches": latent["launches"]["egcl_pair"],
+         "data_parallel_launches": data_parallel["launches"]["egcl_pair"],
          "train_grad": grads["egcl_pair_64x16_bfloat16"]},
         {"name": "egcl_knn", "route": "cuda",
          "source": "diffusion_model_tpu_torch/csrc/egcl_knn.cu",

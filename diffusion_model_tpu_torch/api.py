@@ -9,6 +9,8 @@ generation from a snapshot or a run, and the run's evaluation.
     train(cfg, graphs, run_dir, resume=True)   # on from the newest epoch
     trainer, state = load_trained(run_dir, cfg)
     out = generate(cfg, params_tree(state.eval_params(cfg)), test)
+    out = generate_ring(cfg, params_tree(state.eval_params(cfg)), test)
+                                    # one graph a call through the ring
     evaluate(out, run_dir)          # sorted RMSD, O density, figures
     student_cfg, student = distill(cfg, trainer, state, train, 125)
     out = generate(student_cfg, params_tree(student.eval_params(student_cfg)),
@@ -22,6 +24,11 @@ generation from a snapshot or a run, and the run's evaluation.
 The noise schedule is the config's (``schedule_for``): the polynomial table,
 or for ``noise_schedule="learned"`` the table of the snapshot's own gamma
 network (``params["gamma"]``).
+
+``train`` is data-parallel over a ``parallel.Mesh`` (``mesh=`` or
+``cfg.mesh_shape``) in an initialised ``torch.distributed`` world, and
+``generate_ring`` samples one graph a call with its node axis split over
+the world's ranks (``parallel.ring``).
 
 ``generate`` follows ``diffusion_model_tpu.api.generate``: conditions are
 collated in chunks of ``batch_size`` (the final chunk padded with copies of
@@ -41,6 +48,7 @@ from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from diffusion_model_tpu_torch.config import Config
 from diffusion_model_tpu_torch.data.batch import collate
@@ -70,6 +78,7 @@ from diffusion_model_tpu_torch.nn.gamma import GammaNetwork
 from diffusion_model_tpu_torch.ops.egcl_knn import egcl_knn_edges
 from diffusion_model_tpu_torch.ops.egcl_pair import egcl_pair_edges
 from diffusion_model_tpu_torch.ops.schedules import linspace_f32
+from diffusion_model_tpu_torch.parallel.mesh import NO_WORLD, make_mesh
 from diffusion_model_tpu_torch.train.checkpoint import (
     gamma_state_dict_from_flax,
     latest_step,
@@ -129,7 +138,8 @@ def train(cfg: Config, dataset: list, run_dir: str,
           logger: Optional[RunLogger] = None,
           num_epochs: Optional[int] = None, device=None,
           noise: Optional[Callable[[int, str], object]] = None,
-          resume: bool = False, init_params_from: Optional[str] = None):
+          resume: bool = False, init_params_from: Optional[str] = None,
+          mesh=None):
     """Train, as ``diffusion_model_tpu.api.train``: the dataset prepared
     and split 80/10/10 by ``cfg.seed``, collated once onto the device, then
     per epoch the train batches in the order of seed ``cfg.seed + epoch``
@@ -164,13 +174,37 @@ def train(cfg: Config, dataset: list, run_dir: str,
     from ``cfg.seed``, the epoch and the phase). ``cfg.debug_nans`` raises
     on a non-finite step instead of rolling back (``Trainer``).
 
+    With ``mesh`` (a ``parallel.Mesh``), or ``cfg.mesh_shape`` set (a mesh
+    of that shape and ``cfg.mesh_axis_names`` over the world, whose size
+    must be its product), training is data-parallel: every rank of an
+    initialised ``torch.distributed`` world calls ``train`` alike (on its
+    own ``device``), the state is replicated from the first rank, each
+    step's global batch is split over the mesh (``Trainer.train_step(...,
+    mesh=)``), and the first rank alone writes ``metrics.jsonl``, the
+    checkpoints, ``params.npz`` and ``profile.json``. Without a process
+    group it raises, saying how to start one. A step equals the
+    one-process step up to the order of the sums, so the run does too.
+
     Returns ``(trainer, state, (train_set, val_set, test_set))``.
     """
     device = _device(device, "api.train")
+    if mesh is None and len(cfg.mesh_shape) > 0:
+        if not dist.is_initialized():
+            raise RuntimeError(
+                f"mesh_shape={tuple(cfg.mesh_shape)}: api.train {NO_WORLD}, "
+                "and every rank calls api.train")
+        mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axis_names)
+    writer = mesh is None or dist.get_rank() == 0
+    if mesh is not None and mesh.size != dist.get_world_size():
+        raise ValueError(f"a mesh of {mesh.size} ranks in a world of "
+                         f"{dist.get_world_size()}: api.train needs them "
+                         "equal")
     if noise is None:
         def noise(epoch, phase):
             return TrainNoise((cfg.seed, epoch, int(phase == "eval")),
                               device)
+    if not writer:
+        logger = _Silent()
     logger = logger or RunLogger(run_dir, cfg)
     dataset = prepare_dataset(dataset, cfg)
     train_set, val_set, test_set = split_dataset(dataset, cfg.seed)
@@ -193,6 +227,8 @@ def train(cfg: Config, dataset: list, run_dir: str,
                     "source_step": src.step})
     if state is None:
         state = trainer.init_state(cfg.seed)
+    if mesh is not None:
+        state = trainer.replicate(state, mesh)
     stopper = EarlyStopping(patience=cfg.patience)
     timer = PhaseTimer()
     epochs = cfg.num_epochs if num_epochs is None else num_epochs
@@ -207,7 +243,7 @@ def train(cfg: Config, dataset: list, run_dir: str,
                                         seed=cfg.seed + epoch)
         with timer.phase("train_epoch"):
             state, train_loss = trainer.train_epoch(
-                state, noise(epoch, "train"), batches)
+                state, noise(epoch, "train"), batches, mesh)
         done = epoch + 1
         if not np.isfinite(train_loss):
             nan_recoveries += 1
@@ -223,22 +259,37 @@ def train(cfg: Config, dataset: list, run_dir: str,
                        if val_data is not None else iter(()))
         with timer.phase("eval_epoch"):
             eval_loss = trainer.eval_epoch(state, noise(epoch, "eval"),
-                                           val_batches)
+                                           val_batches, mesh)
         logger.log({"train_loss": train_loss, "eval_loss": eval_loss,
                     "epoch_s": time.perf_counter() - t0}, step=epoch)
-        if cfg.checkpoint_every and done % cfg.checkpoint_every == 0:
+        if (writer and cfg.checkpoint_every
+                and done % cfg.checkpoint_every == 0):
             with timer.phase("checkpoint"):
                 save_checkpoint(ckpt_dir, state, cfg, step=done)
         if stopper.validate(eval_loss):
             break
-    with timer.phase("checkpoint"):
-        save_checkpoint(ckpt_dir, state, cfg, step=done)
-    logger.register_artifact("checkpoints", ckpt_dir)
-    save_params_npz(params_tree(state.eval_params(cfg)),
-                    os.path.join(run_dir, "params.npz"), cfg=cfg)
-    with open(os.path.join(run_dir, "profile.json"), "w") as f:
-        json.dump(timer.report(), f, indent=1)
+    if writer:
+        with timer.phase("checkpoint"):
+            save_checkpoint(ckpt_dir, state, cfg, step=done)
+        logger.register_artifact("checkpoints", ckpt_dir)
+        save_params_npz(params_tree(state.eval_params(cfg)),
+                        os.path.join(run_dir, "params.npz"), cfg=cfg)
+        with open(os.path.join(run_dir, "profile.json"), "w") as f:
+            json.dump(timer.report(), f, indent=1)
+    if mesh is not None:
+        # no rank returns before the first has written the run
+        dist.barrier(group=mesh.group)
     return trainer, state, (train_set, val_set, test_set)
+
+
+class _Silent:
+    """The logger of a data-parallel run's ranks but the first."""
+
+    def log(self, metrics: dict, step: Optional[int] = None) -> None:
+        pass
+
+    def register_artifact(self, name: str, path: str) -> None:
+        pass
 
 
 def load_trained(run_dir: str, cfg: Config, device=None):
@@ -378,26 +429,9 @@ def generate(cfg: Config, params_or_model: Union[dict, DiffusionDenoiser],
     if size_predictor is not None:
         test_graphs = predict_sizes(cfg, size_predictor, test_graphs)
     g = gen_num_per_spectrum or cfg.gen_num_per_spectrum
-    if isinstance(params_or_model, DiffusionDenoiser):
-        model = params_or_model
-        device = next(model.parameters()).device if device is None else device
-        if schedule is None and cfg.noise_schedule != "predefined":
-            raise ValueError(
-                f"noise_schedule={cfg.noise_schedule!r}: a model comes "
-                "without its gamma network; pass schedule=schedule_for(cfg, "
-                "params, device)")
-        params = {}
-    else:
-        params = params_or_model
-        if device is None:
-            device = "cuda" if generator is None else generator.device
-        model = denoiser_from_params(cfg, params, device, edge_fn,
-                                     knn_edge_fn)
-    device = torch.device(device)
-    if generator is None:
-        generator = torch.Generator(device=device).manual_seed(cfg.seed)
-    if schedule is None:
-        schedule = schedule_for(cfg, params, device)
+    model, device, generator, schedule = _sampling(
+        cfg, params_or_model, device, generator, schedule, edge_fn,
+        knn_edge_fn)
 
     outs, ids = [], []
     orig_pos, orig_species, masks = [], [], []
@@ -433,6 +467,102 @@ def generate(cfg: Config, params_or_model: Union[dict, DiffusionDenoiser],
     return {
         "ids": ids,
         **extra,
+        "original_pos": np.concatenate(orig_pos, axis=0),
+        "original_species": np.concatenate(orig_species, axis=0),
+        "mask": np.concatenate(masks, axis=0),
+        "generated_pos": cat("pos"),
+        "generated_species": cat("species"),
+        "generated_h": cat("h"),
+        "finite": cat("finite"),
+        "accepted": cat("accepted"),
+    }
+
+
+def _sampling(cfg: Config, params_or_model, device, generator, schedule,
+              edge_fn: Callable = egcl_pair_edges,
+              knn_edge_fn: Callable = egcl_knn_edges) -> tuple:
+    """(model, device, generator, schedule) of ``generate``'s arguments."""
+    if isinstance(params_or_model, DiffusionDenoiser):
+        model = params_or_model
+        device = next(model.parameters()).device if device is None else device
+        if schedule is None and cfg.noise_schedule != "predefined":
+            raise ValueError(
+                f"noise_schedule={cfg.noise_schedule!r}: a model comes "
+                "without its gamma network; pass schedule=schedule_for(cfg, "
+                "params, device)")
+        params = {}
+    else:
+        params = params_or_model
+        if device is None:
+            device = "cuda" if generator is None else generator.device
+        model = denoiser_from_params(cfg, params, device, edge_fn,
+                                     knn_edge_fn)
+    device = torch.device(device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(cfg.seed)
+    if schedule is None:
+        schedule = schedule_for(cfg, params, device)
+    return model, device, generator, schedule
+
+
+def generate_ring(cfg: Config,
+                  params_or_model: Union[dict, DiffusionDenoiser],
+                  test_graphs: list,
+                  generator: Optional[torch.Generator] = None,
+                  gen_num_per_spectrum: Optional[int] = None, mesh=None,
+                  axis: str = "data", device=None,
+                  schedule: Optional[Schedule] = None) -> dict:
+    """Sample through the ring, one node-sharded graph a call, as
+    ``diffusion_model_tpu.api.generate_ring``: the dense-topology route for
+    cells whose ``[N, N]`` pair grid exceeds one card. The unchanged
+    sampler (strided, deterministic, guidance, the t=0 epilogue, retries)
+    runs with its denoiser through ``parallel.ring.ring_sampler_denoise_fn``;
+    each condition's ``gen_num_per_spectrum`` repeats are sampled one after
+    another at B=1, from one ``generator`` (by default seeded ``cfg.seed``
+    on ``device``). Every rank of the ring calls it alike and gets the same
+    samples. ``mesh``: by default one over the initialised world
+    (``cfg.mesh_shape`` or every rank on ``axis``). The other arguments are
+    ``generate``'s, and so is the returned dict, field for field, so every
+    evaluator takes it. Raises where ``cfg.n_max`` does not split into the
+    mesh's ranks."""
+    from diffusion_model_tpu_torch.parallel.ring import (
+        ring_sampler_denoise_fn,
+    )
+
+    if not cfg.ring_sample:
+        cfg = cfg.replace(ring_sample=True)
+    if mesh is None:
+        if not dist.is_initialized():
+            raise RuntimeError(f"api.generate_ring {NO_WORLD}")
+        mesh = make_mesh(cfg.mesh_shape or None, (axis,))
+    if cfg.n_max % mesh.size != 0:
+        raise ValueError(f"n_max={cfg.n_max} not divisible by mesh size "
+                         f"{mesh.size}")
+    g = gen_num_per_spectrum or cfg.gen_num_per_spectrum
+    model, device, generator, schedule = _sampling(
+        cfg, params_or_model, device, generator, schedule)
+    denoise_fn = ring_sampler_denoise_fn(cfg, model, mesh, axis)
+
+    outs, ids = [], []
+    orig_pos, orig_species, masks = [], [], []
+    for gr in test_graphs:
+        cond = collate([gr], cfg.n_max, device)
+        for _ in range(g):
+            res = sample_with_retry(denoise_fn, schedule, cfg, generator,
+                                    cond)
+            outs.append({k: getattr(res, k).cpu().numpy()
+                         for k in ("pos", "species", "h", "finite",
+                                   "accepted")})
+            ids.append(gr["id"])
+        for field, out in ((cond.pos, orig_pos),
+                           (cond.species, orig_species), (cond.mask, masks)):
+            out.append(np.repeat(field.cpu().numpy(), g, axis=0))
+
+    def cat(field):
+        return np.concatenate([o[field] for o in outs], axis=0)
+
+    return {
+        "ids": ids,
         "original_pos": np.concatenate(orig_pos, axis=0),
         "original_species": np.concatenate(orig_species, axis=0),
         "mask": np.concatenate(masks, axis=0),

@@ -9,7 +9,11 @@ and logs the O-density accuracy scatter; ``--panel`` adds the structural
 panel and the in-protocol RDF resampling ceiling
 (``run_dir/amorphous_panel.json``). Runs on ``--device``, the card by
 default: each denoiser call goes through the dense edge kernel, or with
-``neighbor_k`` set the kNN one.
+``neighbor_k`` set the kNN one. ``--ring`` samples one dense-topology graph
+a call through the node-sharded ring (``api.generate_ring``) over the
+initialised ``torch.distributed`` world, where every rank runs this command
+and the first writes; in a process without one it starts a world of one
+(``parallel.init_single``).
 
     python -m diffusion_model_tpu_torch.cli.generate_amorphous \\
         --run_dir runs/latest --amorphous 2 --generator network \\
@@ -23,6 +27,7 @@ import json
 import os
 
 import numpy as np
+import torch.distributed as dist
 
 from diffusion_model_tpu_torch import api
 from diffusion_model_tpu_torch.cli.common import add_device, device
@@ -37,14 +42,10 @@ from diffusion_model_tpu_torch.evals.density import (
     density_accuracy,
     o_density,
 )
+from diffusion_model_tpu_torch.parallel import init_single
 from diffusion_model_tpu_torch.train.trainer import params_tree
 from diffusion_model_tpu_torch.utils.figures import pyplot
 from diffusion_model_tpu_torch.utils.logging import RunLogger, load_run_config
-
-RING_NOT_PORTED = (
-    "--ring samples through the node-sharded ring (api.generate_ring), "
-    "which is not ported yet: ROADMAP.md queue 1 item 9e")
-
 
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -71,7 +72,10 @@ def parser() -> argparse.ArgumentParser:
                         "for large cells")
     p.add_argument("--ring", action="store_true",
                    help="sample through the node-sharded ring "
-                        "(api.generate_ring); not ported yet, raises")
+                        "(api.generate_ring): one dense-topology graph a "
+                        "call, its node axis split over the ranks of the "
+                        "world, for cells whose [N, N] pair grid exceeds "
+                        "one card (neighbor_k must be 0)")
     p.add_argument("--panel", action="store_true",
                    help="emit the structural-quality panel + the "
                         "in-protocol RDF resampling ceiling "
@@ -82,9 +86,9 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    if args.ring:
-        raise NotImplementedError(RING_NOT_PORTED)
     dev = device(args.device)
+    if args.ring and not dist.is_initialized():
+        init_single("nccl" if dev.type == "cuda" else "gloo")
 
     cfg = load_run_config(args.run_dir)
     make_cell = None
@@ -112,15 +116,24 @@ def main(argv=None):
             "provide --dataset_path, --synthetic N or --amorphous N")
     graphs = api.prepare_dataset(graphs, cfg)
 
-    logger = RunLogger(args.run_dir)
     _, state = api.load_trained(args.run_dir, cfg, dev)
-    gen_kwargs = {}
-    if args.batch_size is not None:
-        gen_kwargs["batch_size"] = args.batch_size
-    results = api.generate(
-        cfg, params_tree(state.eval_params(cfg)), graphs,
-        gen_num_per_spectrum=args.gen_num_per_spectrum, device=dev,
-        **gen_kwargs)
+    params = params_tree(state.eval_params(cfg))
+    if args.ring:
+        results = api.generate_ring(
+            cfg, params, graphs,
+            gen_num_per_spectrum=args.gen_num_per_spectrum, device=dev)
+        if dist.get_rank() != 0:
+            return
+    else:
+        gen_kwargs = {}
+        if args.batch_size is not None:
+            gen_kwargs["batch_size"] = args.batch_size
+        results = api.generate(
+            cfg, params, graphs,
+            gen_num_per_spectrum=args.gen_num_per_spectrum, device=dev,
+            **gen_kwargs)
+
+    logger = RunLogger(args.run_dir)
 
     out = os.path.join(args.run_dir, "generated_amorphous.npz")
     save_generated(results, out)

@@ -12,13 +12,14 @@ a field here, so a config round-trips. What the port does with each:
   the loss's levers and the Kabsch coordinate loss (``kabsch_loss``,
   ``kabsch_loss_steps``, ``kabsch_loss_weight``), the initialisers,
   ``remat_egcl``, ``checkpoint_every`` and ``debug_nans``; the
-  spectrum-latent conditioning, ``spectrum_to_latent`` / ``latent_dim``);
+  spectrum-latent conditioning, ``spectrum_to_latent`` / ``latent_dim``;
+  data-parallel training on a mesh, ``mesh_shape`` / ``mesh_axis_names``,
+  which ``api.train`` reads; ``ring_sample``, sampling through the
+  node-sharded ring, which ``api.generate_ring`` sets);
 - ``Config`` raises ``NotImplementedError``, naming the field, for a value
-  of ``_SUPPORTED`` whose code path the port does not have yet;
+  of ``_SUPPORTED`` the port has no code path for;
 - the fields of ``JAX_ONLY`` no code of the port reads: the table says for
-  each why any value is refused or cannot change a result;
-- ``train.Trainer`` refuses the training setting it has no path for (a
-  mesh).
+  each why any value is refused or cannot change a result.
 
 ``from_dict`` ignores keys that are no field (a run's extras).
 ``load_config`` reads a reference-style ``parameters.yaml`` or the same
@@ -37,7 +38,6 @@ import torch
 
 # (field, value the port supports): any other value raises.
 _SUPPORTED = (
-    ("ring_sample", False),
     ("x_size", 3),
     ("d_size", 1),
 )
@@ -48,9 +48,6 @@ _SUPPORTED = (
 JAX_ONLY = {
     "x_size": ("refused", "positions are 3-D throughout the port"),
     "d_size": ("refused", "the edge MLPs take one squared-distance feature"),
-    "mesh_axis_names": ("inert", "read only with a mesh_shape, which "
-                        "train.Trainer refuses; generation runs on one "
-                        "device"),
     "use_pallas": ("inert", "in the JAX package it picks the implementation "
                    "of the edge function (Pallas or XLA), not the function; "
                    "the port picks its own by widths (nn.egnn.edge_route: "
@@ -114,8 +111,9 @@ class Config:
     t_loss_weight: float = 1.0
     zero_init_x: bool = True
     h_init_scale: float = 1.0
-    # training paths the port does not have (train.Trainer refuses them),
-    # and remat_egcl: each EGCL's forward recomputed in the backward
+    # the Kabsch coordinate loss; remat_egcl: each EGCL's forward
+    # recomputed in the backward; mesh_shape (with mesh_axis_names):
+    # api.train is data-parallel over a mesh of that shape (parallel.mesh)
     kabsch_loss: bool = False
     kabsch_loss_steps: int = 0
     kabsch_loss_weight: float = 1.0
@@ -152,9 +150,10 @@ class Config:
     global_radius_feature: bool = False
 
     # the coordinate update divided by one Frobenius norm of the pair grid
-    # per graph (dense topology only); ring_sample the port rejects (see
-    # _SUPPORTED); spectrum_to_latent: the graphs' spectra are latents of
-    # latent_dim on node 0 (nn.spectrum_latent.encode_dataset)
+    # per graph (dense topology only); ring_sample: the sampler's denoiser
+    # runs through the ring (api.generate_ring; the dense topology only);
+    # spectrum_to_latent: the graphs' spectra are latents of latent_dim on
+    # node 0 (nn.spectrum_latent.encode_dataset)
     compat_scalar_norm: bool = False
     ring_sample: bool = False
     spectrum_to_latent: bool = False
@@ -164,8 +163,8 @@ class Config:
         for name, supported in _SUPPORTED:
             if getattr(self, name) != supported:
                 raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r} is not ported yet "
-                    f"(the port runs {name}={supported!r})")
+                    f"{name}={getattr(self, name)!r} has no code path in "
+                    f"the port (it runs {name}={supported!r})")
         if self.edge_rbf == 1 or self.edge_rbf < 0:
             raise ValueError(
                 f"edge_rbf={self.edge_rbf}: need >= 2 Gaussian centres "

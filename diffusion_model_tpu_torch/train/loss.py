@@ -65,6 +65,35 @@ class TrainNoise:
                           generator=self.generators[stream]) < p
 
 
+class BatchRows:
+    """A noise source that draws from ``noise`` for a global batch of
+    ``size`` graphs and hands out the rows ``rows`` of each draw: a
+    data-parallel rank's draws, the same as the one-process step's for its
+    graphs. Every draw's leading axis is the batch."""
+
+    def __init__(self, noise, rows: slice, size: int):
+        self.noise, self.rows, self.size = noise, rows, size
+
+    def _global(self, shape: Sequence[int]) -> tuple:
+        if shape[0] != self.rows.stop - self.rows.start:
+            raise ValueError(f"a draw of shape {tuple(shape)} is not over "
+                             f"this rank's {self.rows} of {self.size} graphs")
+        return (self.size,) + tuple(shape[1:])
+
+    def randint(self, stream: str, low: int, high: int,
+                shape: Sequence[int]) -> torch.Tensor:
+        return self.noise.randint(stream, low, high,
+                                  self._global(shape))[self.rows]
+
+    def normal(self, stream: str, shape: Sequence[int]) -> torch.Tensor:
+        return self.noise.normal(stream, self._global(shape))[self.rows]
+
+    def bernoulli(self, stream: str, p: float,
+                  shape: Sequence[int]) -> torch.Tensor:
+        return self.noise.bernoulli(stream, p,
+                                    self._global(shape))[self.rows]
+
+
 def _check_band(cfg: Config, what: str) -> None:
     if not 1 <= cfg.t_bias_lo <= cfg.t_bias_hi <= cfg.num_diffusion_timestep:
         raise ValueError(

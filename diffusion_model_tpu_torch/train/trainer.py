@@ -25,6 +25,18 @@ of an epoch is summed on the device and read once at its end.
 step's forward and backward under ``torch.autograd.detect_anomaly()`` and
 raises ``FloatingPointError`` on a non-finite loss, or on a non-finite
 gradient naming its leaf, before the optimizer steps.
+
+Data parallelism (``mesh=`` of the steps and epochs, a ``parallel.Mesh``):
+every rank of the mesh gets the same global batch and keeps its rows
+(``_place``, the JAX ``_place``); it draws the global batch's noise and
+keeps its rows, divides its part of the loss by the global count of real
+graphs, and the ranks sum their gradients with one ``all_reduce`` before
+the optimizer, which then steps identically on each (the parameters are
+replicated once by ``replicate``). A learned schedule's boundary term is
+computed from the global sums and added on the first rank alone. So a step
+equals the one-process step on the global batch, up to the order of the
+sums. ``ring_train_step_fn`` trains one graph whose node axis is split
+over a mesh axis (``parallel.ring``).
 """
 
 from __future__ import annotations
@@ -33,6 +45,7 @@ import dataclasses
 from typing import Any, Callable, Iterable, Optional
 
 import torch
+import torch.distributed as dist
 
 from diffusion_model_tpu_torch.config import Config
 from diffusion_model_tpu_torch.data.batch import GraphBatch
@@ -53,6 +66,7 @@ from diffusion_model_tpu_torch.ops.edges import knn_edges
 from diffusion_model_tpu_torch.ops.egcl_knn import egcl_knn_edges
 from diffusion_model_tpu_torch.ops.egcl_pair import egcl_pair_edges
 from diffusion_model_tpu_torch.ops.kabsch import kabsch_rmsd
+from diffusion_model_tpu_torch.parallel.mesh import dp_batch_sharding
 from diffusion_model_tpu_torch.train import optim
 from diffusion_model_tpu_torch.train.checkpoint import (
     flax_from_state_dict,
@@ -61,16 +75,10 @@ from diffusion_model_tpu_torch.train.checkpoint import (
     state_dict_from_flax,
 )
 from diffusion_model_tpu_torch.train.loss import (
+    BatchRows,
     diffuse_batch,
     epsilon_loss,
     t_band_weights,
-)
-
-# Training paths of the JAX package that the port does not have, and the
-# ROADMAP.md queue 1 item that holds each.
-_NOT_PORTED = (
-    ("mesh_shape", "data-parallel training on a mesh (DDP, with the ring), "
-     "ROADMAP.md queue 1 item 9d"),
 )
 
 
@@ -185,10 +193,6 @@ class Trainer:
     def __init__(self, cfg: Config, device=None,
                  edge_fn: Callable = egcl_pair_edges,
                  knn_edge_fn: Callable = egcl_knn_edges):
-        for name, what in _NOT_PORTED:
-            if getattr(cfg, name):
-                raise NotImplementedError(
-                    f"{name}={getattr(cfg, name)!r}: {what} is not ported")
         self.cfg = cfg
         self.device = torch.device("cuda" if device is None else device)
         self.optimizer = make_optimizer(cfg)
@@ -238,10 +242,13 @@ class Trainer:
 
     # -- loss ----------------------------------------------------------
     def _loss(self, model, gamma, noise, batch: GraphBatch,
-              kabsch: bool = True):
+              kabsch: bool = True, dp: Optional["_DataParallel"] = None):
         """(loss, sum_sq, num_nodes) of ``model`` on ``batch`` noised by
         ``noise``'s draws; the Kabsch term where ``cfg.kabsch_loss`` and
-        ``kabsch``."""
+        ``kabsch``. With ``dp`` the batch is this rank's rows of the global
+        one, and the loss this rank's part of the global loss: the
+        per-graph terms over the global count of real graphs, the boundary
+        term on the first rank alone."""
         cfg = self.cfg
         schedule = self.schedule_for(gamma)
         pos_t, h_t, t, eps_pos, eps_h = diffuse_batch(schedule, cfg, noise,
@@ -270,36 +277,54 @@ class Trainer:
         if cfg.kabsch_loss and kabsch:
             loss = loss + cfg.kabsch_loss_weight * self._kabsch_loss(
                 model, noise, batch, schedule)
-        if gamma is not None and cfg.gamma_boundary_weight > 0:
+        boundary = gamma is not None and cfg.gamma_boundary_weight > 0
+        sums = (self._batch_sums(batch) if boundary or dp is not None
+                else None)
+        if dp is not None:
+            # both terms so far are means over this rank's real graphs
+            local = sums[2].clone()
+            dist.all_reduce(sums, group=dp.group)
+            loss = loss * (local / sums[2].clamp_min(1.0))
+        if boundary and (dp is None or dp.index == 0):
             loss = loss + cfg.gamma_boundary_weight * self._gamma_boundary(
-                schedule, batch)
+                schedule, batch, sums)
         return loss, sum_sq, num_nodes
 
-    def _gamma_boundary(self, schedule: Schedule, batch: GraphBatch):
+    def _batch_sums(self, batch: GraphBatch) -> torch.Tensor:
+        """``[real nodes, sum of x^2 over their real dimensions, real
+        graphs]`` of ``batch``: what the boundary term reads of it."""
+        m3 = batch.mask.unsqueeze(-1)
+        x2_sum = ((batch.pos ** 2) * m3).sum()
+        if self.cfg.diffuse_species:
+            x2_sum = x2_sum + ((batch.species ** 2) * m3).sum()
+        num_graphs = (batch.mask > 0).any(dim=-1).to(x2_sum.dtype).sum()
+        return torch.stack([batch.mask.sum(), x2_sum, num_graphs])
+
+    def _gamma_boundary(self, schedule: Schedule, batch: GraphBatch,
+                        sums: Optional[torch.Tensor] = None):
         """The VDM boundary terms of a learned schedule (reconstruction at
         t = 0, prior KL at t = T), per real dimension, hinged at their
         clean-endpoint values and normalised as the eps loss is (summed
         over real dimensions, over the real graphs); gradients reach only
-        the gamma parameters."""
+        the gamma parameters. ``sums``: ``_batch_sums`` of ``batch`` (by
+        default), or of the global batch under data parallelism."""
         cfg = self.cfg
+        if sums is None:
+            sums = self._batch_sums(batch)
         a0 = schedule.alpha(0)
         a_t = schedule.alpha(cfg.num_diffusion_timestep)
         s0_sq = 1.0 - a0 ** 2
         st_sq = 1.0 - a_t ** 2
         d2 = cfg.gamma_rec_floor ** 2
-        m3 = batch.mask.unsqueeze(-1)
         dims = 3.0 + (cfg.atom_type_size if cfg.diffuse_species else 0.0)
-        n_dims = batch.mask.sum() * dims
-        x2_sum = ((batch.pos ** 2) * m3).sum()
-        if cfg.diffuse_species:
-            x2_sum = x2_sum + ((batch.species ** 2) * m3).sum()
+        n_dims = sums[0] * dims
+        x2_sum = sums[1]
         rec = torch.maximum(0.5 * torch.log((s0_sq + d2) / a0 ** 2),
                             torch.log(torch.tensor(2.0 * d2)).to(a0) * 0.5)
         prior = torch.clamp_min(
             0.5 * (a_t ** 2 * (x2_sum / n_dims.clamp_min(1.0))
                    + st_sq - 1.0 - torch.log(st_sq)), 1e-4)
-        num_graphs = (batch.mask > 0).any(dim=-1).to(
-            x2_sum.dtype).sum().clamp_min(1.0)
+        num_graphs = sums[2].clamp_min(1.0)
         return (rec + prior) * n_dims / num_graphs
 
     def _kabsch_loss(self, model, noise, batch: GraphBatch,
@@ -332,17 +357,36 @@ class Trainer:
         return total / real.to(rmsd.dtype).sum().clamp_min(1.0)
 
     # -- steps ---------------------------------------------------------
-    def loss_and_grads(self, state: TrainState, noise, batch: GraphBatch):
+    def _place(self, batch: GraphBatch, noise, mesh):
+        """(this rank's rows of the global ``batch``, a noise source that
+        draws for the global batch and keeps those rows, the data-parallel
+        group) on ``mesh``; ``(batch, noise, None)`` without one. The JAX
+        ``_place``: ``shard_graph_batch(batch, mesh, mode="dp")``."""
+        if mesh is None:
+            return batch, noise, None
+        layout = dp_batch_sharding(mesh)
+        rows = layout.block(0, batch.batch_size)
+        group, ranks = mesh.group_over(layout.axes(0))
+        return (batch.map(layout.local),
+                BatchRows(noise, rows, batch.batch_size),
+                _DataParallel(group, ranks.index(dist.get_rank())))
+
+    def loss_and_grads(self, state: TrainState, noise, batch: GraphBatch,
+                       mesh=None):
         """(loss, sum_sq, num_nodes, grads name -> tensor) at the trained
-        modules' parameters."""
+        modules' parameters; on ``mesh`` those of the global batch, the
+        same on every rank (the gradients summed over the ranks)."""
+        batch, noise, dp = self._place(batch, noise, mesh)
         if self.cfg.debug_nans:
             with torch.autograd.detect_anomaly():
-                return self._loss_and_grads(state, noise, batch, check=True)
-        return self._loss_and_grads(state, noise, batch, check=False)
+                out = self._loss_and_grads(state, noise, batch, True, dp)
+        else:
+            out = self._loss_and_grads(state, noise, batch, False, dp)
+        return out if dp is None else _summed(out, dp.group)
 
-    def _loss_and_grads(self, state, noise, batch, check: bool):
+    def _loss_and_grads(self, state, noise, batch, check: bool, dp=None):
         loss, sum_sq, num_nodes = self._loss(self.model, self.gamma, noise,
-                                             batch)
+                                             batch, dp=dp)
         if check and not bool(torch.isfinite(loss)):
             raise FloatingPointError(
                 f"debug_nans: the loss is {float(loss.detach())}")
@@ -358,17 +402,31 @@ class Trainer:
                         f"debug_nans: the gradient of {k} is not finite")
         return loss.detach(), sum_sq.detach(), num_nodes, grads
 
-    def train_step(self, state: TrainState, noise, batch: GraphBatch):
-        """One optimizer step: (state, metrics ``loss``, ``sum_sq``,
-        ``num_nodes``, ``grad_norm``, all tensors on the device)."""
-        loss, sum_sq, num_nodes, grads = self.loss_and_grads(state, noise,
-                                                             batch)
+    def _apply(self, state: TrainState, loss, sum_sq, num_nodes, grads):
         updates, opt_state = self.optimizer.update(grads, state.opt_state,
                                                    state.params)
         optim.apply_updates(state.params, updates)
         metrics = {"loss": loss, "sum_sq": sum_sq, "num_nodes": num_nodes,
                    "grad_norm": optim.global_norm(grads)}
         return TrainState(state.params, opt_state, state.step + 1), metrics
+
+    def train_step(self, state: TrainState, noise, batch: GraphBatch,
+                   mesh=None):
+        """One optimizer step: (state, metrics ``loss``, ``sum_sq``,
+        ``num_nodes``, ``grad_norm``, all tensors on the device); on
+        ``mesh`` a data-parallel step over the global ``batch``."""
+        return self._apply(state, *self.loss_and_grads(state, noise, batch,
+                                                       mesh))
+
+    @torch.no_grad()
+    def replicate(self, state: TrainState, mesh) -> TrainState:
+        """``state`` with the parameters and the optimizer state of the
+        mesh's first rank on every rank (the JAX ``device_put(state,
+        replicate(mesh))``), in place."""
+        group, ranks = mesh.group_over(mesh.axis_names)
+        for t in _tensors(state.params) + _tensors(state.opt_state):
+            dist.broadcast(t, src=ranks[0], group=group)
+        return state
 
     def _load_eval(self, params: dict) -> tuple:
         """The frozen evaluation modules, holding ``params``."""
@@ -399,31 +457,116 @@ class Trainer:
                                           kabsch=False)
         return {"sum_sq": sum_sq, "num_nodes": num_nodes}
 
-    def ring_train_step_fn(self, *args, **kwargs):
-        raise NotImplementedError(
-            "ring (node-sharded) training is not ported: ROADMAP.md queue 1 "
-            "item 9e")
+    # -- ring (node-sharded) training ----------------------------------
+    def ring_train_step_fn(self, mesh, axis: str = "data") -> Callable:
+        """A train step through the ring (``parallel.ring``) for one graph a
+        step whose node axis is split over ``axis``, as the JAX
+        ``ring_train_step_fn``: ``step(state, noise, batch) -> (state,
+        metrics)``. Every rank noises the whole graph with the same draws
+        (the dense loss's streams: ``diffuse_batch``, then the
+        conditioning-dropout Bernoulli), keeps its block of nodes, and
+        takes the loss of its block over the graph count; the sum over the
+        ring of the ranks' parts is the dense loss, and the gradients are
+        summed once before the optimizer. The coordinate head's conversion
+        and the t-band weights are the dense loss's; a learned schedule's
+        gamma runs on every rank over the whole graph, its boundary term
+        added on the first rank of the ring alone."""
+        if self.cfg.kabsch_loss:
+            # the Kabsch term differentiates through the whole reverse
+            # chain every step, a small-cluster objective; at ring scale
+            # that is T sharded forwards a step, and leaving it out would
+            # train another objective
+            raise NotImplementedError(
+                "kabsch_loss is not routed through the ring (the whole "
+                "reverse chain a step is a small-cluster objective; use the "
+                "dense path for Kabsch training)")
+        from diffusion_model_tpu_torch.parallel.ring import (
+            ring_denoise_apply,
+        )
+
+        cfg = self.cfg
+        apply_fn = ring_denoise_apply(cfg, mesh, axis)
+        group, ranks = mesh.lines[axis]
+        place = mesh.axis_index(axis)
+
+        def loss_fn(noise, batch: GraphBatch):
+            if batch.mask.shape[0] != 1:
+                # one ring is one graph: the single prediction would meet
+                # every graph's noise targets in the loss
+                raise ValueError(
+                    "ring training takes exactly one node-sharded graph "
+                    f"per step (got batch_size={batch.mask.shape[0]})")
+            schedule = self.schedule_for(self.gamma)
+            pos_t, h_t, t, eps_pos, eps_h = diffuse_batch(schedule, cfg,
+                                                          noise, batch)
+            b, n = batch.mask.shape
+            t_norm = (t.to(torch.float32)[:, None, None]
+                      / cfg.num_diffusion_timestep) * torch.ones(
+                          (b, n, 1), device=batch.device)
+            t_norm = t_norm * batch.mask.unsqueeze(-1)
+            spectrum = batch.spectrum
+            if cfg.cond_dropout_prob > 0:
+                keep = noise.bernoulli("drop", 1.0 - cfg.cond_dropout_prob,
+                                       (b,))
+                spectrum = spectrum * keep[:, None, None].to(spectrum.dtype)
+            eps_x_pred, eps_h_pred = apply_fn(
+                self.model, h_t[0], pos_t[0], spectrum[0], batch.exo[0],
+                t_norm[0], batch.mask[0])
+            width = n // len(ranks)
+            blk = slice(place * width, (place + 1) * width)
+            if x_param_is_x0(cfg):
+                eps_x_pred = head_out_to_eps(
+                    cfg, schedule, t, pos_t[:, blk], eps_x_pred[None])[0]
+            loss, sum_sq, num_nodes = epsilon_loss(
+                eps_x_pred[None], eps_h_pred[None], eps_pos[:, blk],
+                eps_h[:, blk], batch.mask[:, blk],
+                include_h=cfg.diffuse_species,
+                weights=t_band_weights(cfg, t))
+            if (self.gamma is not None and cfg.gamma_boundary_weight > 0
+                    and place == 0):
+                loss = loss + cfg.gamma_boundary_weight * \
+                    self._gamma_boundary(schedule, batch)
+            return loss, sum_sq, num_nodes
+
+        def step(state: TrainState, noise, batch: GraphBatch):
+            params = state.params
+            loss, sum_sq, num_nodes = loss_fn(noise, batch)
+            parts = torch.autograd.grad(loss, list(params.values()),
+                                        allow_unused=True)
+            grads = {k: torch.zeros_like(p) if g is None else g
+                     for (k, p), g in zip(params.items(), parts)}
+            out = _summed((loss.detach(), sum_sq.detach(), num_nodes,
+                           grads), group)
+            return self._apply(state, *out)
+
+        return step
 
     # -- epochs --------------------------------------------------------
     def train_epoch(self, state: TrainState, noise,
-                    batches: Iterable[GraphBatch]) -> tuple:
+                    batches: Iterable[GraphBatch], mesh=None) -> tuple:
         """One pass over ``batches``: (state, summed squared error per real
-        node), the sums kept on the device and read once."""
+        node), the sums kept on the device and read once; on ``mesh`` each
+        batch is the global one and each step data-parallel."""
         total = torch.zeros(2, device=self.device)
         for batch in batches:
-            state, m = self.train_step(state, noise, batch)
+            state, m = self.train_step(state, noise, batch, mesh)
             total = total + torch.stack([m["sum_sq"], m["num_nodes"]])
         sq, nodes = total.tolist()
         return state, sq / max(nodes, 1.0)
 
     def eval_epoch(self, state: TrainState, noise,
-                   batches: Iterable[GraphBatch]) -> float:
-        """Summed squared error per real node at ``state.eval_params``."""
+                   batches: Iterable[GraphBatch], mesh=None) -> float:
+        """Summed squared error per real node at ``state.eval_params`` (over
+        the global batches on ``mesh``, summed over the ranks once)."""
         modules = self._load_eval(state.eval_params(self.cfg))
         total = torch.zeros(2, device=self.device)
         for batch in batches:
-            m = self._eval_batch(modules, noise, batch)
+            batch, batch_noise, _ = self._place(batch, noise, mesh)
+            m = self._eval_batch(modules, batch_noise, batch)
             total = total + torch.stack([m["sum_sq"], m["num_nodes"]])
+        if mesh is not None:
+            group, _ = mesh.group_over(dp_batch_sharding(mesh).axes(0))
+            dist.all_reduce(total, group=group)
         sq, nodes = total.tolist()
         return sq / max(nodes, 1.0)
 
@@ -435,3 +578,45 @@ class Trainer:
             p.copy_(saved.params[k])
         return TrainState(state.params, _clone_tree(saved.opt_state),
                           saved.step)
+
+
+@dataclasses.dataclass(frozen=True)
+class _DataParallel:
+    """The ranks whose gradients a data-parallel step sums: their process
+    group, and this rank's place among them."""
+
+    group: Any
+    index: int
+
+
+def _tensors(tree) -> list:
+    """The tensors of a state tree (dicts, tuples, named tuples), in a
+    fixed order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tensors(tree[k])]
+    if isinstance(tree, tuple):
+        return [t for v in tree for t in _tensors(v)]
+    return []
+
+
+def _all_reduced(tensors: list, group) -> list:
+    """The sums of ``tensors`` over ``group``, through one ``all_reduce`` of
+    their concatenation."""
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    out, at = [], 0
+    for t in tensors:
+        out.append(flat[at:at + t.numel()].view(t.shape).to(t.dtype))
+        at += t.numel()
+    return out
+
+
+def _summed(out: tuple, group) -> tuple:
+    """``(loss, sum_sq, num_nodes, grads)`` summed over ``group``."""
+    loss, sum_sq, num_nodes, grads = out
+    names = list(grads)
+    summed = _all_reduced([loss, sum_sq, num_nodes]
+                          + [grads[k] for k in names], group)
+    return (*summed[:3], dict(zip(names, summed[3:])))

@@ -82,12 +82,11 @@ def test_positions_within_sampler_tolerance(both):
                                rtol=1e-3, atol=1e-2)
 
 
-def test_unported_options_raise(monkeypatch):
+def test_ring_sample_and_size_predictor_are_taken(monkeypatch):
     jcfg, params = flagship()
     cfg = from_dict(jcfg.to_dict())
-    # ring sampling (api.generate_ring) is the option left unported
-    with pytest.raises(NotImplementedError, match="ring_sample"):
-        from_dict({**jcfg.to_dict(), "ring_sample": True})
+    # ring sampling carries over (api.generate_ring runs it)
+    assert from_dict({**jcfg.to_dict(), "ring_sample": True}).ring_sample
     # size_predictor is ported: generate re-sizes the conditions first
     seen = []
 

@@ -90,13 +90,12 @@ def test_large_cell_settings_carry_over(field, value):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("ring_sample", True),
+    ("ring_sample", True), ("mesh_shape", [2]),
 ])
-def test_unported_settings_raise_naming_the_field(field, value):
+def test_parallel_settings_carry_over(field, value):
     d = {field: value}
-    jax_from_dict(d)   # a valid config for the JAX package
-    with pytest.raises(NotImplementedError, match=field):
-        port_config.from_dict(d)
+    assert getattr(port_config.from_dict(d), field) == getattr(
+        jax_from_dict(d), field)
 
 
 @pytest.mark.parametrize("value", ["eps", "x0", "v", "foo"])
@@ -208,8 +207,7 @@ def test_every_jax_field_is_a_port_field_or_in_the_table():
         assert port_fields[name] == default, name
     # the fields no code of the port reads are each in the table, with
     # what the port does with them and why
-    assert set(port_config.JAX_ONLY) == {
-        "x_size", "d_size", "use_pallas", "mesh_axis_names"}
+    assert set(port_config.JAX_ONLY) == {"x_size", "d_size", "use_pallas"}
     for name, (how, why) in port_config.JAX_ONLY.items():
         assert how in ("refused", "inert") and why, name
     assert not set(HONOURED_SINCE_F6) & set(port_config.JAX_ONLY)

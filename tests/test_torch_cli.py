@@ -16,8 +16,8 @@ JAX package's, on the CPU.
 * ``load_results`` drops rejected samples as JAX's does, trajectories along
   their sample axis.
 * ``generate_amorphous``: network cells with ``--panel``: the panel's keys
-  and the npz's keys, shapes and ids as JAX's; ``--ring`` raises naming
-  queue 1 item 9.
+  and the npz's keys, shapes and ids as JAX's; ``--ring`` in a world of one
+  (the CLI starts it) as the CLI without it, within 2e-4.
 * ``cn``: from JAX's initialisation on the same split, the printed train
   MSEs within rtol 1e-4 and the test MAE, accuracy and macro-F1 within one
   unit of the last printed digit (Adam in float32 on both sides);
@@ -250,10 +250,26 @@ def test_generate_amorphous_panel_as_jax(runs):
     assert (runs[1] / "figures" / "atom_type_eval_amorphous.png").exists()
 
 
-def test_generate_amorphous_ring_names_item_9(runs):
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        generate_amorphous.main(["--run_dir", str(runs[1]), "--synthetic",
-                                 "2", "--ring", *CPU])
+def test_generate_amorphous_ring_in_a_world_of_one(runs, tmp_path):
+    import shutil
+
+    import torch.distributed as dist
+
+    dirs = tmp_path / "ring", tmp_path / "dense"
+    for d in dirs:
+        shutil.copytree(runs[1], d)
+    argv = ["--synthetic", "1", "--gen_num_per_spectrum", "1", *CPU]
+    try:
+        generate_amorphous.main(["--run_dir", str(dirs[0]), *argv, "--ring"])
+        assert dist.get_world_size() == 1
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    generate_amorphous.main(["--run_dir", str(dirs[1]), *argv])
+    got, want = (np.load(d / "generated_amorphous.npz") for d in dirs)
+    np.testing.assert_array_equal(got["ids"], want["ids"])
+    np.testing.assert_allclose(got["generated_pos"], want["generated_pos"],
+                               rtol=2e-4, atol=2e-4)
 
 
 def test_macro_f1_bit_for_bit():

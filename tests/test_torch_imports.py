@@ -52,7 +52,8 @@ def test_every_module_is_listed():
                      "cli.evaluate_si_o_si", "cli.evaluate_fingerprint",
                      "cli.generate_amorphous", "cli.cn", "serve",
                      "cli.export", "train.distill", "nn.spectrum_latent",
-                     "evals.distill_check"):
+                     "evals.distill_check", "parallel", "parallel.mesh",
+                     "parallel.ring"):
         assert f"diffusion_model_tpu_torch.{expected}" in names
 
 

@@ -270,9 +270,13 @@ def test_kabsch_stream_is_appended():
         assert noise.generators[name].initial_seed() == int(state[0])
 
 
-def test_ring_training_refusal_names_item_9():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Trainer(Config(**TINY), device="cpu").ring_train_step_fn()
+def test_ring_training_refuses_the_kabsch_loss():
+    """As the JAX package's: the Kabsch term differentiates through the
+    whole reverse chain every step, which the ring does not route."""
+    cfg = Config(**{**TINY, "kabsch_loss": True})
+    with pytest.raises(NotImplementedError,
+                       match="kabsch_loss is not routed through the ring"):
+        Trainer(cfg, device="cpu").ring_train_step_fn(None)
 
 
 class InfChain(TrainNoise):

@@ -277,6 +277,30 @@ def test_debug_nans_names_a_non_finite_gradient(data):
     assert_states_equal(state, pstate)
 
 
-def test_mesh_training_points_at_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Trainer(tiny(mesh_shape=(2,)), device="cpu")
+def test_mesh_training_in_a_world_of_one_is_the_plain_run(data, tmp_path):
+    """``api.train`` with ``mesh_shape=(1,)`` in this process's world of one
+    (gloo; the card's phase data_parallel with NCCL) writes the run without
+    a mesh bit for bit: a sum over one rank is the identity."""
+    import torch.distributed as dist
+
+    from diffusion_model_tpu_torch import parallel
+
+    cfg = tiny(optimizer="RAdamScheduleFree", noise_schedule="learned",
+               cond_dropout_prob=0.5)
+    _, plain, _ = api.train(cfg, data, str(tmp_path / "plain"),
+                            num_epochs=2, device="cpu")
+    parallel.init_single("gloo")
+    try:
+        _, dp, _ = api.train(cfg.replace(mesh_shape=(1,)), data,
+                             str(tmp_path / "dp"), num_epochs=2,
+                             device="cpu")
+    finally:
+        dist.destroy_process_group()
+    assert_states_equal(dp, plain)
+
+    def losses(d):
+        return [(r["train_loss"], r["eval_loss"])
+                for r in map(json.loads, open(tmp_path / d / "metrics.jsonl"))
+                if "train_loss" in r]
+
+    assert losses("dp") == losses("plain") and len(losses("dp")) == 2

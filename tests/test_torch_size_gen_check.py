@@ -10,9 +10,10 @@ record of its run on the card.
   scores the finished run without training it again, and ``--params``
   scores the run's ``params.npz`` at another ``--sample_seed``.
 * ``tests/fixtures/torch_port/size_gen_192_hres_vn.json`` (the recipe's
-  seed, 2024) and ``..._seed2025.json``, the port's retrains of the
-  record's ``h_residual+virtual_node`` arm on the card: their fields,
-  config name and gates as measured.
+  seed, 2024) and ``..._seed2025.json`` to ``..._seed2027.json``, the
+  port's retrains of the record's ``h_residual+virtual_node`` arm on the
+  card: their fields, config name and gates as measured; the later seeds'
+  scores at sampling seeds 2024 and 0-3 (``sample_seeds``).
 """
 
 import json
@@ -163,7 +164,11 @@ def test_needs_the_card_unless_asked(monkeypatch, capsys):
 
 @pytest.mark.parametrize("name,seed", [("size_gen_192_hres_vn", None),
                                        ("size_gen_192_hres_vn_seed2025",
-                                        2025)])
+                                        2025),
+                                       ("size_gen_192_hres_vn_seed2026",
+                                        2026),
+                                       ("size_gen_192_hres_vn_seed2027",
+                                        2027)])
 def test_the_cards_retrain_record(name, seed):
     with open(os.path.join(FIXTURES, name + ".json")) as f:
         out = json.load(f)
@@ -194,6 +199,18 @@ def test_the_cards_retrain_record(name, seed):
     epochs = [r[0] for r in curve["rows"]]
     assert epochs[0] == 0 and epochs[-1] == 1999
     assert all(math.isfinite(r[1]) for r in curve["rows"])
+    if "sample_seeds" in out:
+        # F9 step (b): each training seed scored at sampling seeds 2024
+        # and 0-3, the file's own row that of 2024
+        rows = out["sample_seeds"]
+        assert sorted(rows) == ["0", "1", "2", "2024", "3"]
+        assert out["sample_seed"] == 2024
+        assert rows["2024"]["aggregate_rdf_cos"] == row["aggregate_rdf_cos"]
+        assert rows["2024"]["excess_rdf_cos"] == \
+            row["panel"]["excess_rdf_cos"]
+        for r in rows.values():
+            assert 0.0 < r["aggregate_rdf_cos"] <= 1.0
+            assert r["accepted"] <= 32
 
 
 def test_recipe_train_step_at_full_width_matches_jax():

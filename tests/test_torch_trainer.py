@@ -439,19 +439,44 @@ def test_api_train_runs_rolls_back_and_stops(tmp_path):
     assert not any(p.requires_grad for p in model.parameters())
 
 
-# the case keeps the id it had beside the Kabsch case (now trained with)
-@pytest.mark.parametrize("kw,what", [
-    pytest.param(dict(mesh_shape=(2,)), "mesh", id="kw1-mesh")])
-def test_trainer_refuses_paths_it_has_not(kw, what):
-    _, cfg = cfgs(**kw)
-    with pytest.raises(NotImplementedError, match=what):
-        Trainer(cfg, device="cpu")
+def test_trainer_takes_a_mesh_shape(tmp_path):
+    """The trainer takes the setting; ``api.train`` reads it and, without a
+    process group, says how to start one."""
+    _, cfg = cfgs(mesh_shape=(2,))
+    Trainer(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="parallel.launch"):
+        api.train(cfg, tiny_data(cfgs()[0]), str(tmp_path), num_epochs=1,
+                  device="cpu")
 
 
-def test_ring_training_is_refused():
-    _, cfg = cfgs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(cfg, device="cpu").ring_train_step_fn()
+def test_ring_training_in_a_world_of_one():
+    """``ring_train_step_fn`` in this process's world of one (gloo, the
+    card's layout with NCCL): one block, no point-to-point call, the dense
+    step at the ring's tolerances (loss rtol 1e-4, leaves 2e-3 / 2e-6)."""
+    import torch.distributed as dist
+
+    from diffusion_model_tpu_torch import parallel
+    from diffusion_model_tpu_torch.train.loss import TrainNoise
+
+    _, cfg = cfgs(batch_size=1, noise_schedule="learned",
+                  cond_dropout_prob=0.5)
+    batch = collate(tiny_data(cfgs()[0], 1), cfg.n_max, "cpu")
+    parallel.init_single("gloo")
+    try:
+        ring = Trainer(cfg, device="cpu")
+        step = ring.ring_train_step_fn(parallel.make_mesh())
+        got, gm = step(ring.init_state(0), TrainNoise(7, "cpu"), batch)
+    finally:
+        dist.destroy_process_group()
+    dense = Trainer(cfg, device="cpu")
+    want, wm = dense.train_step(dense.init_state(0), TrainNoise(7, "cpu"),
+                                batch)
+    np.testing.assert_allclose(float(gm["loss"]), float(wm["loss"]),
+                               rtol=1e-4)
+    for k, p in want.params.items():
+        np.testing.assert_allclose(got.params[k].detach().numpy(),
+                                   p.detach().numpy(), rtol=2e-3, atol=2e-6,
+                                   err_msg=k)
 
 
 def test_api_train_needs_the_card_unless_asked(tmp_path, monkeypatch):
