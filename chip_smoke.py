@@ -221,7 +221,18 @@ Phases, each printed as one JSON line:
      rtol 2e-3 / atol 2e-6; peak memory). The ring's edge work is the plain
      PyTorch statement, as the JAX package's ring is plain ``jnp``: it
      launches no kernel, and ``parallel.ring.ring_edge_calls`` counts it
-     apart from ``plain_edge_calls``.
+     apart from ``plain_edge_calls``;
+ 32. f9_replay: the first ``F9_STEPS`` steps of F9's full-width training
+     replay (``tests/torch_replay_training_full.py``: the large-cell
+     recipe at 12.5 M parameters on 160-192-atom network cells, kNN-32,
+     batch 4, from the numpy start on the recorded batches and draws) in
+     float32 and bfloat16 through K2, held to JAX's tracks
+     (``tests/fixtures/torch_port/train_replay_full_hres_vn.*``): at step
+     1 the one-step tolerances (loss rtol 1e-5, gradient norm 5e-3 in
+     float32, 5e-2 in bfloat16), at step 10 F9's rule (``verdict``: the
+     float32 drift bound, and the bfloat16 gap within 1.5x JAX's own
+     bfloat16-to-float32 gap); K2 5 launches a step, the plain route
+     never.
 
 Any failed check raises, and the script exits non-zero without its result
 line. The last lines are the kernel table (with each kernel's bound: its
@@ -381,6 +392,9 @@ RING_NOISE_SEED = 11       # TrainNoise of its train steps
 # 4.9e26 on the card; on the CPU in float32 4.9e26 at 1, 5.2e10 at 0.1, 47.8
 # at 0.01, 2.6 at 1e-3), and a comparison of infinities holds nothing
 RING_X_SCALE = 1e-3
+# phase f9_replay: steps of each track of F9's full-width replay it runs
+# (the rule is read at the record after step 10)
+F9_STEPS = 10
 
 
 def log(record: dict) -> None:
@@ -3935,6 +3949,71 @@ def phase_spectrum_latent(device, card: str) -> dict:
     return rec
 
 
+def phase_f9_replay(device, card: str) -> dict:
+    """Phase 32 (above): the first ``F9_STEPS`` steps of both tracks of
+    F9's full-width replay, against the JAX package's record."""
+    import torch
+
+    from diffusion_model_tpu_torch.ops import egcl_knn
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import torch_replay_training_full as full
+
+    t0 = time.perf_counter()
+    meta, npz = full.load_fixture()
+    start = full.port_leaves(full.numpy_start(meta["start"]["spec"],
+                                              meta["start"]["seed"]))
+    sketch = full.Sketch(start, meta["sketch"]["seed"], meta["sketch"]["k"],
+                         device=device)
+    full.check_inputs(meta, npz, sketch)
+    setup_s = time.perf_counter() - t0
+    egcl_knn.egcl_knn_launches = 0
+    port = {t: full.replay_track(meta, npz, t, F9_STEPS, device, sketch)
+            for t in full.TRACKS}
+    launches = egcl_knn.egcl_knn_launches
+    verdict = full.verdict(meta, port, F9_STEPS)
+    first = {}
+    for t, grad_rtol in (("float32", full.GRAD_RTOL),
+                         ("bfloat16", full.BF16_GRAD_RTOL)):
+        want = meta["tracks"][t]
+        first[t] = {
+            "loss": port[t]["loss"][0], "jax_loss": want["loss"][0],
+            "grad_norm": port[t]["grad_norm"][0],
+            "jax_grad_norm": want["grad_norm"][0],
+            "grad_norm_within": math.isclose(
+                port[t]["grad_norm"][0], want["grad_norm"][0],
+                rel_tol=grad_rtol)}
+    first["float32"]["loss_within"] = math.isclose(
+        port["float32"]["loss"][0], meta["tracks"]["float32"]["loss"][0],
+        rel_tol=full.LOSS_RTOL)
+    rec = {"phase": "f9_replay", "card": card, "steps": F9_STEPS,
+           "first_step": first, "verdict": verdict,
+           "gaps_at_10": {t: port[t]["records"][-1]["gap"]["tree"]
+                          for t in full.TRACKS},
+           "jax_bf16_f32_gap_at_10": next(
+               r["exact"]["tree"] for r in meta["jax_gap"]
+               if r["step"] == F9_STEPS),
+           "egcl_knn_launches": launches,
+           "ms_a_step": {t: 1e3 * port[t]["seconds"] / F9_STEPS
+                         for t in full.TRACKS},
+           "setup_s": setup_s, "peak_gb": torch.cuda.max_memory_allocated(
+               device) / 1e9, "s": time.perf_counter() - t0}
+    log(rec)
+    want_launches = len(full.TRACKS) * F9_STEPS * meta["L"]
+    if launches != want_launches:
+        raise AssertionError(f"f9_replay launched K2 {launches} times, "
+                             f"not {want_launches}")
+    if not all(f["grad_norm_within"] for f in first.values()) \
+            or not first["float32"]["loss_within"]:
+        raise AssertionError(f"f9_replay: step 1 off JAX's: {first}")
+    if verdict["outcome"] != "i":
+        raise AssertionError(f"f9_replay: F9's rule refuses the first "
+                             f"{F9_STEPS} steps: {verdict}")
+    del sketch
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_data_parallel(device, card: str, phase17: dict) -> dict:
     """``api.train`` with the flagship's recipe (bf16, dense K1, batch 64)
     from a fresh init for ``TRAIN_EPOCHS`` epochs with ``mesh_shape=(1,)``
@@ -4527,6 +4606,7 @@ def main() -> int:
     distilled = kernels_only("distill", phase_distill, graphs, device, card)
     latent = kernels_only("spectrum_latent", phase_spectrum_latent, device,
                           card)
+    kernels_only("f9_replay", phase_f9_replay, device, card)
     from diffusion_model_tpu_torch import parallel
 
     parallel.init_single("nccl")

@@ -228,6 +228,35 @@ class Config:
         return size
 
     @property
+    def m_input_size(self) -> int:
+        """Width of the edge (message) MLP's input: both ends' features and
+        the distance feature."""
+        return 2 * self.h_size + self.d_size
+
+    @property
+    def m_output_size(self) -> int:
+        return self.m_size
+
+    @property
+    def h_input_size(self) -> int:
+        """Width of the node MLP's input: the features and the summed
+        messages."""
+        return self.h_size + self.m_size
+
+    @property
+    def h_output_size(self) -> int:
+        return self.h_size
+
+    @property
+    def x_input_size(self) -> int:
+        """Width of the coordinate MLP's input, that of the edge MLP."""
+        return 2 * self.h_size + self.d_size
+
+    @property
+    def x_output_size(self) -> int:
+        return 1
+
+    @property
     def torch_dtype(self) -> torch.dtype:
         """The MLP matmul dtype (geometry and reductions stay float32)."""
         return (torch.bfloat16 if self.compute_dtype == "bfloat16"

@@ -43,6 +43,10 @@ class GraphBatch:
     def pair_mask(self) -> torch.Tensor:
         return dense_pair_mask(self.mask)
 
+    def num_nodes(self) -> torch.Tensor:
+        """The batch's real atoms (the sum of ``mask``)."""
+        return self.mask.sum()
+
     def map(self, fn: Callable[[torch.Tensor], torch.Tensor]) -> "GraphBatch":
         """Apply ``fn`` to every field."""
         return GraphBatch(**{f.name: fn(getattr(self, f.name))

@@ -234,6 +234,16 @@ class Trainer:
                           for k, p in self.gamma.named_parameters()})
         return TrainState(named, self.optimizer.init(named))
 
+    def denoise_fn(self, params: dict) -> DiffusionDenoiser:
+        """The denoiser holding ``params`` (name -> tensor, as
+        ``TrainState.eval_params`` gives them), frozen, for the sampler:
+        called with the denoiser's arguments."""
+        model = self._modules().requires_grad_(False)
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                p.copy_(params["denoiser." + k])
+        return model
+
     # -- schedule ------------------------------------------------------
     def schedule_for(self, gamma: Optional[GammaNetwork]) -> Schedule:
         if self._static_schedule is not None:
@@ -298,7 +308,7 @@ class Trainer:
         if self.cfg.diffuse_species:
             x2_sum = x2_sum + ((batch.species ** 2) * m3).sum()
         num_graphs = (batch.mask > 0).any(dim=-1).to(x2_sum.dtype).sum()
-        return torch.stack([batch.mask.sum(), x2_sum, num_graphs])
+        return torch.stack([batch.num_nodes(), x2_sum, num_graphs])
 
     def _gamma_boundary(self, schedule: Schedule, batch: GraphBatch,
                         sums: Optional[torch.Tensor] = None):

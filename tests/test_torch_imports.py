@@ -73,3 +73,41 @@ def test_imports_without_jax_flax_yaml_or_the_jax_package():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_the_full_width_replayer_and_its_start_import_no_jax():
+    """``tests/torch_replay_training_full.py`` runs on the card's machine:
+    it, the numpy start, the sketch and the batches it rebuilds load nothing
+    of JAX or the JAX package."""
+    code = "\n".join([
+        "import sys",
+        f"for name in {BLOCKED!r}:",
+        "    sys.modules[name] = None",
+        "sys.path.insert(0, 'tests')",
+        "import numpy as np",
+        "import torch_replay_training_full as full",
+        "spec = [{'path': 'a/kernel', 'shape': [3, 4], 'std': 0.5,",
+        "         'const': None}, {'path': 'a/bias', 'shape': [4], 'std': 0.0,",
+        "         'const': 0.0}]",
+        "tree = full.numpy_start(spec, 1)",
+        "leaf = tree['denoiser']['params']['a']['kernel']",
+        "assert leaf.shape == (3, 4) and leaf.dtype == np.float32",
+        "assert not tree['denoiser']['params']['a']['bias'].any()",
+        "origin = {'x': leaf.ravel()}",
+        "s = full.Sketch(origin, k=8)",
+        "out = s({'x': leaf.ravel() + 1})",
+        "assert out['tree'].shape == (8,)",
+        "cfg, cells = full.setup()",
+        "assert len(cells) == 8 and cfg.neighbor_k == 32",
+        "full.batch_indices(cfg, len(cells), 3)",
+        "next(full.port_batches(cfg, cells))",
+        "import torch_port_fixtures",
+        "loaded = [m for m in sys.modules if m.split('.')[0] in "
+        f"{BLOCKED!r} and sys.modules[m] is not None]",
+        "assert not loaded, loaded",
+        "print('ok')",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

@@ -10,7 +10,7 @@ record of its run on the card.
   scores the finished run without training it again, and ``--params``
   scores the run's ``params.npz`` at another ``--sample_seed``.
 * ``tests/fixtures/torch_port/size_gen_192_hres_vn.json`` (the recipe's
-  seed, 2024) and ``..._seed2025.json`` to ``..._seed2027.json``, the
+  seed, 2024) and ``..._seed2025.json`` to ``..._seed2028.json``, the
   port's retrains of the record's ``h_residual+virtual_node`` arm on the
   card: their fields, config name and gates as measured; the later seeds'
   scores at sampling seeds 2024 and 0-3 (``sample_seeds``).
@@ -168,7 +168,9 @@ def test_needs_the_card_unless_asked(monkeypatch, capsys):
                                        ("size_gen_192_hres_vn_seed2026",
                                         2026),
                                        ("size_gen_192_hres_vn_seed2027",
-                                        2027)])
+                                        2027),
+                                       ("size_gen_192_hres_vn_seed2028",
+                                        2028)])
 def test_the_cards_retrain_record(name, seed):
     with open(os.path.join(FIXTURES, name + ".json")) as f:
         out = json.load(f)
