@@ -117,7 +117,7 @@ Phases, each printed as one JSON line:
      the flagship's weights read as that head, one bf16 denoiser call
      through K1 against the plain statement at t = 1, 10, 500, 1000 (raw
      output relative L2 1e-2; the converted output's gap beside alpha /
-     sigma); the flagship's recipe with the head from a fresh init, 50
+     sigma); the flagship's recipe with the head from a fresh init, 30
      epochs through K1 (finite, falling loss), then 27 x 5 sampled at 250
      strided and at 1000 steps through K1 (one round, scores logged, no
      gate; the eps recipe's epoch timed beside, 30 epochs); and the large
@@ -190,11 +190,16 @@ Phases, each printed as one JSON line:
      through the functions they call.
  27. served_export: the flagship's run directory exported through
      ``cli.export.main --calibrate 2`` (dense, 250 strided deterministic
-     steps, 16 conditions) and through ``serve.export_sampler`` on kNN-15
-     and with 2 retry rounds: each ``ServedSampler`` call bit for bit the
-     live ``sample`` at the same seed, 1,255 launches of K1 (or K2) a call,
-     the retry export equal to the retry-free one on the rows it accepts;
-     ms a call;
+     steps, 16 conditions) and through ``serve.export_sampler`` on kNN-15,
+     with 2 retry rounds and stochastic (a draw at every step): each
+     artifact (three ``torch.export`` programs) loaded and called twice in
+     a child process whose meta-path finder refuses the model code, the
+     JAX package and JAX; each call bit for bit the live ``sample`` at the
+     same seed, 1,255 launches of K1 (or K2) a call counted by the op
+     modules there, the retry export equal to the retry-free one on the
+     rows it accepts, a step of each program no more device kernels than
+     the live sampler's (``torch.profiler``); ms a call beside the live
+     call's, the artifacts' bytes, the exports' seconds;
  28. distill: ``api.distill`` from the flagship's weights, one halving
      1000 -> 500, 2 epochs at batch 64 (K1 15 times a step; ms a step,
      the median after the first; losses finite), the student sampled at 500 deterministic steps on 16
@@ -235,7 +240,9 @@ Phases, each printed as one JSON line:
      never.
 
 Any failed check raises, and the script exits non-zero without its result
-line. The last lines are the kernel table (with each kernel's bound: its
+line. Before the last lines, a ``timeline`` record gives the seconds from
+the start at which each phase logged its last record. The last lines are
+the kernel table (with each kernel's bound: its
 operations at the published dense peak, or its bytes at 3.35 TB/s, the
 larger), the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.
@@ -323,7 +330,7 @@ RESUME_EPOCHS = 4      # of the checkpoint_resume phase's runs
 RESUME_SPREAD = 3.0
 HEAD_MODES = ("x0", "v")
 HEAD_T = (1, 10, 500, 1000)   # timesteps of the heads' K1-vs-plain call
-HEAD_EPOCHS = 50       # of the flagship's recipe with each head
+HEAD_EPOCHS = 30       # of the flagship's recipe with each head
 HEAD_BASELINE_EPOCHS = 30   # of the eps recipe, timed beside the heads
 STRIDED_FIXTURE = ROOT / "tests" / "fixtures" / "torch_port" / \
     "jax_strided_250.json"
@@ -397,7 +404,15 @@ RING_X_SCALE = 1e-3
 F9_STEPS = 10
 
 
+# seconds from the script's start at which each phase's last record was
+# logged (the "timeline" record): where an earlier phase's depth is cut
+LOGGED_AT = {}
+T_START = time.perf_counter()
+
+
 def log(record: dict) -> None:
+    if "phase" in record:
+        LOGGED_AT[record["phase"]] = round(time.perf_counter() - T_START, 1)
     print(json.dumps(record), flush=True)
 
 
@@ -3547,37 +3562,209 @@ def angle_on_bin_edge(pos, tol_deg: float = 1e-3) -> bool:
     return bool((np.abs(ang - 10.0 * np.round(ang / 10.0)) < tol_deg).any())
 
 
-def served_reading(served, cond, seed: int) -> tuple:
-    """One ``ServedSampler`` call on ``cond``'s spectra: (pos, species,
-    accepted as numpy, launches, ms on the host clock)."""
+# The served calls of phase served_export, run in a child process whose
+# meta-path finder refuses the model code, the JAX package and JAX: the
+# artifact alone, with the two op modules, must serve. It imports while the
+# parent exports (``serving_child``), then runs ``serve_job`` on the JSON
+# job it reads from stdin; its last stdout line is the job's record.
+SERVE_CHILD = r"""
+import importlib.abc
+import json
+import sys
+
+REFUSED = tuple("diffusion_model_tpu_torch." + m for m in (
+    "api", "config", "data", "diffusion", "nn", "train", "evals", "cli",
+    "parallel")) + ("diffusion_model_tpu", "jax")
+
+
+def refused(name):
+    return any(name == r or name.startswith(r + ".") for r in REFUSED)
+
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if refused(name):
+            raise ImportError(f"{name} is refused in the serving process")
+        return None
+
+
+sys.meta_path.insert(0, Refuse())
+import torch
+import torch.export.pt2_archive  # the reader, imported while waiting
+
+import chip_smoke
+from diffusion_model_tpu_torch import serve  # noqa: F401, as the reader
+
+rec = chip_smoke.serve_job(json.loads(sys.stdin.read()))
+rec["refused_loaded"] = sorted(m for m in sys.modules if refused(m))
+print(json.dumps(rec))
+"""
+
+
+def program_step_kernels(served, seed: int) -> int:
+    """Device kernels of one step of ``served``'s step program at the top
+    of its grid, by ``torch.profiler`` as ``launches_per_call`` counts
+    them, after each program has run once (its code is generated at its
+    first call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    meta, layout, programs = served.meta, served.layout, served.programs
+    b, n = meta["batch_size"], meta["n_max"]
+    device = served.device
+    cond = (torch.zeros((b, n, meta["spectrum_size"]), device=device),
+            torch.zeros((b, n, 1), device=device),
+            torch.ones((b, n), device=device),
+            torch.zeros((b, n, meta["atom_type_size"]), device=device))
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draws(piece):
+        got = [torch.randn(s, generator=gen, device=device)
+               for s in layout["draws"][piece]]
+        return got + [None] * (2 - len(got))
+
+    pos, h = programs["start"](cond, *draws("start"))
+    t, noise = torch.tensor(layout["steps"]), draws("step")
+    programs["step"](cond, pos, h, t, *noise)
+    programs["epilogue"](cond, pos, h, *noise)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        programs["step"](cond, pos, h, t, *noise)
+        torch.cuda.synchronize()
+    return len([e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.name.startswith(("Memcpy", "Memset"))])
+
+
+def serve_job(job: dict) -> dict:
+    """The serving process's work (``SERVE_CHILD``): each artifact of
+    ``job`` loaded with ``serve.ServedSampler`` and called ``job["calls"]
+    [name]`` times at ``job["seed"]`` on the inputs' spectra, each call's
+    outputs saved to ``job["out"]``; its load seconds, each call's ms and
+    K1 / K2 launches (the op modules' counts), and one step's device
+    kernels. Imports only ``serve`` and the op modules of the port."""
+    import numpy as np
     import torch
 
-    reset_counts()
+    from diffusion_model_tpu_torch import serve
+    from diffusion_model_tpu_torch.ops import egcl_knn, egcl_pair
+
+    with np.load(job["inputs"]) as f:
+        args = [f[k] for k in ("spectrum", "exo", "mask")]
+    out = {}
+    for name, path in job["artifacts"].items():
+        t0 = time.perf_counter()
+        served = serve.ServedSampler(path)
+        rec = {"load_s": time.perf_counter() - t0,
+               "step_device_kernels": program_step_kernels(served,
+                                                           job["seed"]),
+               "calls": []}
+        for i in range(job["calls"][name]):
+            egcl_pair.egcl_pair_launches = egcl_knn.egcl_knn_launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pos, species, accepted = served(job["seed"], *args)
+            torch.cuda.synchronize()
+            rec["calls"].append({
+                "ms": (time.perf_counter() - t0) * 1e3,
+                "egcl_pair": egcl_pair.egcl_pair_launches,
+                "egcl_knn": egcl_knn.egcl_knn_launches})
+            np.savez(f"{job['out']}/{name}_{i}.npz", pos=pos,
+                     species=species, accepted=accepted)
+        out[name] = rec
+    return {"artifacts": out}
+
+
+def same_bits(a, b) -> bool:
+    """Two sequences of numpy arrays equal bit for bit (a NaN equals the
+    same NaN)."""
+    return all(x.dtype == y.dtype and x.shape == y.shape
+               and x.tobytes() == y.tobytes() for x, y in zip(a, b))
+
+
+def serving_child() -> subprocess.Popen:
+    """``SERVE_CHILD`` started: it imports, then waits for its job."""
+    return subprocess.Popen([sys.executable, "-c", SERVE_CHILD], cwd=ROOT,
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def served_in_child(child: subprocess.Popen, artifacts: dict, calls: dict,
+                    cond, out_dir: Path) -> dict:
+    """``child`` (``serving_child``) on ``artifacts`` (name -> path),
+    ``calls[name]`` calls each at ``SERVE_SEED`` over ``cond``'s spectra:
+    its record, each call's outputs read back as
+    ``rec["artifacts"][name]["outputs"]`` (numpy (pos, species, accepted)
+    a call) and the seconds from the job to the record."""
+    import numpy as np
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    np.savez(out_dir / "inputs.npz", spectrum=cond.spectrum.cpu().numpy(),
+             exo=cond.exo.cpu().numpy(), mask=cond.mask.cpu().numpy())
+    job = {"artifacts": {k: str(v) for k, v in artifacts.items()},
+           "calls": calls, "seed": SERVE_SEED,
+           "inputs": str(out_dir / "inputs.npz"), "out": str(out_dir)}
     t0 = time.perf_counter()
-    out = served(seed, cond.spectrum.cpu().numpy(), cond.exo.cpu().numpy(),
-                 cond.mask.cpu().numpy())
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
-    return out, read_counts(), ms
+    stdout, stderr = child.communicate(json.dumps(job), timeout=600)
+    wall = time.perf_counter() - t0
+    if child.returncode != 0:
+        raise AssertionError(f"the serving process failed (exit "
+                             f"{child.returncode}):\n{stderr[-4000:]}")
+    rec = json.loads(stdout.strip().splitlines()[-1])
+    rec["job_s"] = wall
+    for name, row in rec["artifacts"].items():
+        row["outputs"] = []
+        for i in range(calls[name]):
+            with np.load(out_dir / f"{name}_{i}.npz") as f:
+                row["outputs"].append((f["pos"], f["species"],
+                                       f["accepted"]))
+    return rec
 
 
 def live_reading(cfg, params: dict, cond, seed: int, device) -> tuple:
     """``diffusion.sampler.sample`` of a model holding ``params`` with a
     generator seeded ``seed`` on ``cond``: (pos, species, accepted as
-    numpy, launches)."""
+    numpy, launches, ms on the host clock, device kernels of one step at
+    the top of the grid after a warm one, by ``torch.profiler`` as
+    ``launches_per_call`` counts them)."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from diffusion_model_tpu_torch import api
-    from diffusion_model_tpu_torch.diffusion.sampler import sample
+    from diffusion_model_tpu_torch.diffusion.sampler import (
+        ReverseChain,
+        sample,
+    )
 
     model = api.denoiser_from_params(cfg, params, device)
     schedule = api.schedule_for(cfg, params, device)
     reset_counts()
+    t0 = time.perf_counter()
     res = sample(model, schedule, cfg,
                  torch.Generator(device=device).manual_seed(seed), cond)
     counts = read_counts()
+    ms = (time.perf_counter() - t0) * 1e3
+    chain = ReverseChain(model, schedule, cfg, cond)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def noise(shape):
+        return torch.randn(tuple(shape), generator=gen, device=device)
+
+    with torch.no_grad():
+        pos, h = chain.start(*chain.draws(noise, chain.start_shapes()))
+        draws = chain.draws(noise, chain.step_shapes())
+        chain.step(pos, h, chain.steps, *draws)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            chain.step(pos, h, chain.steps, *draws)
+            torch.cuda.synchronize()
+    kernels = len([e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith(("Memcpy", "Memset"))])
     return ((res.pos.cpu().numpy(), res.species.cpu().numpy(),
-             res.accepted.cpu().numpy()), counts)
+             res.accepted.cpu().numpy()), counts, ms, kernels)
 
 
 def phase_served_export(graphs: list, device, card: str) -> dict:
@@ -3585,17 +3772,39 @@ def phase_served_export(graphs: list, device, card: str) -> dict:
     the snapshot's weights (as phase cli_drivers makes it), exported through
     ``cli.export.main`` at ``SERVE_STEPS`` strided deterministic steps for
     ``SERVE_B`` conditions with ``--calibrate 2`` (dense, K1), and through
-    ``serve.export_sampler`` with ``neighbor_k=15`` (K2) and with
-    ``retry_rounds`` 2. Each ``ServedSampler`` call on the first
-    ``SERVE_B`` test conditions is bit for bit the live ``sample`` with a
-    generator of the same seed at the run's eval parameters, and the same
-    call again equal, launching its kernel L (steps + 1) times and the
-    other none; the retry export equals the retry-free one where every row
-    is accepted; ms a call (the second, host clock); the launches of the
-    whole phase."""
+    ``serve.export_sampler`` with ``neighbor_k=15`` (K2), with
+    ``retry_rounds`` 2, and stochastic (a draw at every step). Every
+    artifact is loaded and called in a child process that cannot import
+    the model code (``SERVE_CHILD``, started first so that it imports while
+    the exports run); each call on the first ``SERVE_B`` test conditions is
+    bit for bit the live ``sample`` with a generator of the same seed at
+    the run's eval parameters (the live calls run before the child's, on
+    an idle card), launching its kernel L (steps + 1) times and the other
+    none (counted by the op modules in the child); the dense call twice
+    equal; the retry export equal to the retry-free one where the first
+    draw accepts. A step of each program launches no more device kernels
+    than the live sampler's step (``torch.profiler``). Logged: ms a call
+    (host clock, each program run once before) beside the live call's, the
+    artifacts' bytes, the exports' seconds, the launches of the phase."""
+    t_phase = time.perf_counter()
+    child = serving_child()
+    try:
+        rec = served_export_calls(child, graphs, device, card)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    rec["s"] = time.perf_counter() - t_phase
+    log(rec)
+    return rec
+
+
+def served_export_calls(child, graphs: list, device, card: str) -> dict:
+    """Phase served_export's work, with ``child`` its serving process."""
     import shutil
 
     import numpy as np
+    import torch
 
     from diffusion_model_tpu_torch import api, serve
     from diffusion_model_tpu_torch.cli import export
@@ -3608,7 +3817,6 @@ def phase_served_export(graphs: list, device, card: str) -> dict:
     from diffusion_model_tpu_torch.train.trainer import Trainer, params_tree
     from diffusion_model_tpu_torch.utils.logging import RunLogger
 
-    t_phase = time.perf_counter()
     shutil.rmtree(SERVE_RUN, ignore_errors=True)
     cfg = load_config_npz(str(SNAPSHOT))
     run = SERVE_RUN / "flagship"
@@ -3626,7 +3834,7 @@ def phase_served_export(graphs: list, device, card: str) -> dict:
     rec = {"phase": "served_export", "card": card, "batch": SERVE_B,
            "sample_steps": SERVE_STEPS, "launches_per_call": per_call}
 
-    dense = SERVE_RUN / "dense.pt"
+    dense = SERVE_RUN / "dense.pt2"
     reset_counts()
     t0 = time.perf_counter()
     export.main([str(a) for a in (
@@ -3649,58 +3857,82 @@ def phase_served_export(graphs: list, device, card: str) -> dict:
                              f", want {want}")
     trainer, state = api.load_trained(str(run), served_cfg, device)
     params = params_tree(state.eval_params(served_cfg))
-    knn_cfg = served_cfg.replace(neighbor_k=SERVED_K)
-    exports = {"dense": (dense, served_cfg, "egcl_pair")}
-    for name, c, rounds in (("knn15", knn_cfg, 0),
-                            ("dense_retry2", served_cfg, 2)):
-        path = SERVE_RUN / f"{name}.pt"
+    exports = {"dense": (dense, served_cfg, rec["cli_export"]["s"])}
+    for name, c, rounds in (
+            ("knn15", served_cfg.replace(neighbor_k=SERVED_K), 0),
+            ("dense_retry2", served_cfg, 2),
+            ("stochastic", served_cfg.replace(deterministic_sampling=False),
+             0)):
+        path = SERVE_RUN / f"{name}.pt2"
+        t0 = time.perf_counter()
         serve.export_sampler(c, trainer, state, str(path), SERVE_B,
                              retry_rounds=rounds)
-        exports[name] = (path, c, "egcl_knn" if c.neighbor_k else
-                         "egcl_pair")
-    calls = {}
-    for name, (path, c, kernel) in exports.items():
-        served = serve.ServedSampler(str(path), device)
-        got, counts, _ = served_reading(served, cond, SERVE_SEED)
-        again, again_counts, ms = served_reading(served, cond, SERVE_SEED)
-        add(counts)
-        add(again_counts)
-        want = {"egcl_pair": 0, "egcl_knn": 0, "plain_edge_calls": 0,
-                kernel: per_call}
+        exports[name] = (path, c, time.perf_counter() - t0)
+    del trainer, state
+    live = {}
+    for name, (_, c, _) in exports.items():
         if name != "dense_retry2":
-            live, live_counts = live_reading(c, params, cond, SERVE_SEED,
-                                             device)
-            add(live_counts)
-            same = all(np.array_equal(a, b) for a, b in zip(got, live))
-            if not same or live_counts != want:
-                raise AssertionError(f"{name}: the served call is not the "
-                                     f"live sampler's ({live_counts})")
-        row = {"launches": counts, "ms_per_call": ms,
-               "accepted": int(got[2].sum()),
-               "finite": int(np.isfinite(got[0]).all(axis=(1, 2)).sum()),
-               "sidecar": served.meta,
-               "repeat_equal": all(np.array_equal(a, b)
-                                   for a, b in zip(got, again))}
-        calls[name] = (got, row)
-        if not row["repeat_equal"]:
-            raise AssertionError(f"{name}: the same call twice differs")
-        if name != "dense_retry2" or got[2].all():
-            if counts != want:
-                raise AssertionError(f"{name}: launches {counts}, want "
+            live[name] = live_reading(c, params, cond, SERVE_SEED, device)
+            add(live[name][1])
+    torch.cuda.empty_cache()
+    calls = {name: 2 if name == "dense" else 1 for name in exports}
+    served = served_in_child(child, {k: v[0] for k, v in exports.items()},
+                             calls, cond, SERVE_RUN / "calls")
+    if served["refused_loaded"]:
+        raise AssertionError(f"the serving process loaded model code: "
+                             f"{served['refused_loaded']}")
+    rec["child_job_s"] = served["job_s"]
+    outputs = {}
+    for name, (path, c, export_s) in exports.items():
+        got = served["artifacts"][name]
+        kernel = "egcl_knn" if c.neighbor_k else "egcl_pair"
+        want = {"egcl_pair": 0, "egcl_knn": 0, kernel: per_call}
+        first = got["outputs"][0]
+        row = {"bytes": path.stat().st_size, "export_s": export_s,
+               "load_s": got["load_s"], "calls": got["calls"],
+               "ms_per_call": got["calls"][-1]["ms"],
+               "accepted": int(first[2].sum()),
+               "finite": int(np.isfinite(first[0]).all(axis=(1, 2)).sum()),
+               "sidecar": json.loads(Path(f"{path}.json").read_text()),
+               "step_device_kernels": got["step_device_kernels"]}
+        for call in got["calls"]:
+            add(call)
+            if ((name != "dense_retry2" or first[2].all())
+                    and {k: call[k] for k in want} != want):
+                raise AssertionError(f"{name}: launches {call}, want "
                                      f"{want}")
+        if name == "dense":
+            row["repeat_equal"] = same_bits(*got["outputs"])
+            if not row["repeat_equal"]:
+                raise AssertionError("dense: the same call twice differs")
+        if name in live:
+            outs, counts, ms, kernels = live[name]
+            # the program's step counted in this process too, beside the
+            # live step: a process's history can change the kernels a
+            # step launches (PERF.md section 7)
+            here = program_step_kernels(
+                serve.ServedSampler(str(path), device), SERVE_SEED)
+            row.update(live_ms_per_call=ms, live_step_device_kernels=kernels,
+                       step_device_kernels_here=here)
+            if not same_bits(first, outs) or counts != {
+                    **want, "plain_edge_calls": 0}:
+                raise AssertionError(f"{name}: the served call is not the "
+                                     f"live sampler's ({counts})")
+            if here > kernels:
+                raise AssertionError(
+                    f"{name}: a step of the program launches {here} device "
+                    f"kernels, the live sampler's {kernels}")
+        outputs[name] = first
         rec[name] = row
-    (raw, _), (retry, row) = calls["dense"], calls["dense_retry2"]
+    raw, retry = outputs["dense"], outputs["dense_retry2"]
     acc = raw[2]
-    same = all(np.array_equal(a[acc], b[acc]) for a, b in zip(raw, retry))
-    row["equal_to_retry_free_on_accepted_rows"] = same
-    if not same or (acc.all() and not all(
-            np.array_equal(a, b) for a, b in zip(raw, retry))):
+    same = same_bits([a[acc] for a in raw], [b[acc] for b in retry])
+    rec["dense_retry2"]["equal_to_retry_free_on_accepted_rows"] = same
+    if not same or (acc.all() and not same_bits(raw, retry)):
         raise AssertionError("the retry export parts from the retry-free "
                              "one on the rows its first draw accepts")
-    rec["bit_for_bit_live"] = ["dense", "knn15"]
+    rec["bit_for_bit_live"] = sorted(live)
     rec["launches"] = total
-    rec["s"] = time.perf_counter() - t_phase
-    log(rec)
     return rec
 
 
@@ -4627,6 +4859,7 @@ def main() -> int:
               phase_pipeline(device, card),
               phase_kernel_stages(device, card)]
 
+    log({"phase": "timeline", "logged_at_s": dict(LOGGED_AT)})
     log({"kernels": [
         {"name": "egcl_pair", "route": "cuda",
          "source": "diffusion_model_tpu_torch/csrc/egcl_pair.cu",

@@ -2,13 +2,15 @@
 ``diffusion_model_tpu/cli/export.py``::
 
     python -m diffusion_model_tpu_torch.cli.export \\
-        --run_dir runs/flagship --out runs/flagship/sampler.pt \\
+        --run_dir runs/flagship --out runs/flagship/sampler.pt2 \\
         --batch_size 16 --sample_steps 250 --deterministic
 
-The artifact holds the run's eval parameters and schedule table, not a
-compiled program (``serve.py`` says why); ``ServedSampler`` rebuilds the
-sampler from this package. The run is loaded, and ``--calibrate`` samples,
-on ``--device``.
+The artifact is the compiled sampler (``serve.py``): the reverse chain's
+start, step and epilogue as ``torch.export`` programs at the export's
+shape, with the run's eval parameters and schedule table baked in, which
+``ServedSampler`` calls without the model code. The run is loaded, the
+programs are traced, and ``--calibrate`` samples with the live sampler, on
+``--device``.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--run_dir", type=str, required=True)
     p.add_argument("--out", type=str, required=True,
-                   help="artifact path (metadata sidecar at <out>.json)")
+                   help="artifact path: one file of compiled programs "
+                        "(metadata sidecar at <out>.json)")
     p.add_argument("--batch_size", type=int, default=16,
                    help="conditions per call (one export per shape bucket)")
     p.add_argument("--sample_steps", type=int, default=None,

@@ -108,15 +108,26 @@ class ReverseChain:
 
     ``schedule`` is the full ``T+1`` table; the chain keeps the one over
     its reverse grid (``cfg.sample_steps`` strided entries, else all), and
-    ``t`` everywhere is an index into that grid.
+    ``t`` everywhere is an index into that grid: a Python int, or for
+    ``step`` a 0-d int64 tensor on the CPU (read with ``item``; one on the
+    card would make the host wait for it). ``grid``, where given, is
+    ``_strided(schedule, cfg)`` computed before (``schedule`` is then not
+    read): the serving export computes it before the trace, so that the
+    grid enters the program as constants.
+
+    ``start``, ``step`` and ``finish`` take every draw as a tensor (None
+    where the chain takes none), so ``torch.export`` can trace each of
+    them; ``run_chain`` takes the draws from a noise source in the fixed
+    order (module docstring) and strings them together.
     """
 
-    def __init__(self, denoise_fn: Callable, schedule: Schedule, cfg: Config,
-                 cond: GraphBatch):
+    def __init__(self, denoise_fn: Callable, schedule: Optional[Schedule],
+                 cfg: Config, cond: GraphBatch, grid: Optional[tuple] = None):
         self.denoise_fn = denoise_fn
         self.cfg = cfg
         self.cond = cond
-        self.schedule, self.t_norm_table, self.steps = _strided(schedule, cfg)
+        self.schedule, self.t_norm_table, self.steps = (
+            grid if grid is not None else _strided(schedule, cfg))
         self.x0_mode = x_param_is_x0(cfg)
         self.mask = cond.mask
         self.m3 = cond.mask.unsqueeze(-1)
@@ -127,7 +138,7 @@ class ReverseChain:
                             deterministic=cfg.deterministic_sampling,
                             noise_scale=cfg.sample_noise_scale)
 
-    def denoise(self, pos: torch.Tensor, h: torch.Tensor, t: int):
+    def denoise(self, pos: torch.Tensor, h: torch.Tensor, t):
         """(eps_x, eps_h) at grid index ``t``."""
         cfg, cond, mask = self.cfg, self.cond, self.mask
         t_norm = self.m3 * self.t_norm_table[t]
@@ -154,19 +165,45 @@ class ReverseChain:
             eps_x = head_out_to_eps(cfg, self.schedule, t, pos, eps_x)
         return eps_x, eps_h
 
-    def draws(self, noise: NoiseSource, pos: torch.Tensor, h: torch.Tensor):
-        """(position noise, species noise) of one step, in the fixed order;
-        (None, None) when the chain is deterministic."""
-        if not self.stochastic:
-            return None, None
-        pos_noise = noise(pos.shape)
-        return pos_noise, (noise(h.shape) if self.cfg.diffuse_species
-                           else None)
+    def start_shapes(self) -> list:
+        """The shapes of the chain's first draws, in the fixed order: the
+        positions, then the species channel where it is diffused."""
+        b, n = self.mask.shape
+        return [(b, n, 3)] + ([(b, n, self.cfg.atom_type_size)]
+                              if self.cfg.diffuse_species else [])
 
-    def step(self, pos: torch.Tensor, h: torch.Tensor, t: int,
+    def step_shapes(self) -> list:
+        """The shapes of one step's draws (the epilogue's too), in the fixed
+        order; none when the chain is deterministic."""
+        if not self.stochastic:
+            return []
+        return self.start_shapes()
+
+    def draws(self, noise: NoiseSource, shapes: list) -> tuple:
+        """``noise`` of each of ``shapes``, in order, padded with None to
+        (positions, species)."""
+        got = [noise(s) for s in shapes]
+        return tuple(got + [None] * (2 - len(got)))
+
+    def start(self, pos_draw: torch.Tensor,
+              h_draw: Optional[torch.Tensor]):
+        """The pure-noise state at grid index ``steps``: the first draw made
+        CoM-free, and the species channel's draw masked (the condition's
+        species where they are not diffused)."""
+        pos = remove_mean(pos_draw, self.mask)
+        h = (h_draw * self.m3 if self.cfg.diffuse_species
+             else self.cond.species)
+        return pos, h
+
+    def step(self, pos: torch.Tensor, h: torch.Tensor, t,
              pos_noise: Optional[torch.Tensor],
              h_noise: Optional[torch.Tensor]):
         """The state at grid index ``t - 1`` from the one at ``t``."""
+        if isinstance(t, torch.Tensor):
+            t = t.item()
+            # the bounds of an index that torch.export's tracer cannot see
+            torch._check(t >= 1)
+            torch._check(t <= self.steps)
         eps_x, eps_h = self.denoise(pos, h, t)
         new_pos = reverse_diffuse_one_step(self.schedule, pos_noise, pos,
                                            eps_x, t, mode="pos",
@@ -193,33 +230,38 @@ class ReverseChain:
                    .to(pos.dtype) * self.m3)
         return pos, h, species
 
+    def finish(self, pos: torch.Tensor, h: torch.Tensor,
+               pos_noise: Optional[torch.Tensor],
+               h_noise: Optional[torch.Tensor]):
+        """The epilogue, then its masks: (pos, h, species, finite [B],
+        accepted [B]), finite where no NaN or Inf came out, accepted where
+        also no coordinate exceeds 1000."""
+        pos, h, species = self.epilogue(pos, h, pos_noise, h_noise)
+        b = pos.shape[0]
+        flat_pos = pos.detach().reshape(b, -1)
+        flat_h = h.detach().reshape(b, -1)
+        finite = (torch.isfinite(flat_pos).all(dim=-1)
+                  & torch.isfinite(flat_h).all(dim=-1))
+        # coordinates above 1000 are rejected (signed comparison)
+        accepted = finite & ~(flat_pos > 1000.0).any(dim=-1)
+        return pos, h, species, finite, accepted
+
 
 def run_chain(chain: ReverseChain, noise: NoiseSource,
               return_trajectory: bool = False) -> SampleResult:
     """The reverse chain from pure noise to the t=0 epilogue, the draws
     taken from ``noise`` in the fixed order; autograd records it where grad
     mode is on."""
-    cfg, cond = chain.cfg, chain.cond
-    steps = chain.steps
-    mask = cond.mask
-    b, n = mask.shape
-
-    pos = remove_mean(noise((b, n, 3)), mask)
-    h = (noise((b, n, cfg.atom_type_size)) * chain.m3 if cfg.diffuse_species
-         else cond.species)
-
+    cfg, steps = chain.cfg, chain.steps
+    pos, h = chain.start(*chain.draws(noise, chain.start_shapes()))
+    shapes = chain.step_shapes()
     frames = []
     for t in range(steps, 0, -1):
         if return_trajectory and (steps - t) % cfg.snapshot_every == 0:
             frames.append((pos, h))
-        pos, h = chain.step(pos, h, t, *chain.draws(noise, pos, h))
-    pos, h, species = chain.epilogue(pos, h, *chain.draws(noise, pos, h))
-
-    flat_pos, flat_h = pos.detach().reshape(b, -1), h.detach().reshape(b, -1)
-    finite = (torch.isfinite(flat_pos).all(dim=-1)
-              & torch.isfinite(flat_h).all(dim=-1))
-    # coordinates above 1000 are rejected (signed comparison)
-    accepted = finite & ~(flat_pos > 1000.0).any(dim=-1)
+        pos, h = chain.step(pos, h, t, *chain.draws(noise, shapes))
+    pos, h, species, finite, accepted = chain.finish(
+        pos, h, *chain.draws(noise, shapes))
     trajectory = None
     if return_trajectory:
         trajectory = (torch.stack([f[0] for f in frames]),

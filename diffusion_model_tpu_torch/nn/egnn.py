@@ -326,10 +326,23 @@ class EGCL(nn.Module):
         casts once for sampling: cast again when ``dt``, the device or any
         parameter changes (its storage or its version counter, which every
         in-place write bumps), and after ``load_state_dict``. A kept cast
-        has no graph, so it never reaches a training forward."""
+        has no graph, so it never reaches a training forward.
+
+        Under ``torch.export`` the kept cast is the one used and no key is
+        read (a parameter may be a fake tensor there): its tensors become
+        the exported program's constants, cast once before the trace and
+        never inside the graph. Cast them first (a call of this method outside
+        the trace); a layer that finds none, or one in another dtype,
+        raises."""
         params = tuple(self.parameters())
         if torch.is_grad_enabled() and any(p.requires_grad for p in params):
             return self._cast_weights(dt)
+        if torch.compiler.is_exporting():
+            if self._cast is None or self._cast_key[0] != dt:
+                raise RuntimeError(
+                    f"an EGCL is exported with no weights kept in {dt}: "
+                    "call compute_weights before torch.export")
+            return self._cast
         key = (dt, params[0].device,
                tuple((p.data_ptr(), p._version) for p in params))
         if key != self._cast_key:

@@ -28,9 +28,13 @@ the graph. A float32 variant walks the padded slots with plain FMAs.
 ``last_rows`` holds the tile rows the last launch computed (an int32 on the
 card).
 
-On CPU tensors ``egcl_knn_edges`` runs ``egcl_knn_edges_reference``; on CUDA
-tensors it launches the kernel or raises. Where autograd records (grad mode
-on and an input requires grad) it runs through ``ops.edge_grad.
+Where autograd does not record, ``egcl_knn_edges`` calls the custom op
+``torch.ops.diffusion_model_tpu_torch.egcl_knn`` (``egcl_knn_op``), which
+dispatches by device: on CUDA tensors it launches the kernel or raises, on
+CPU tensors it runs ``egcl_knn_edges_reference``, and on any other device it
+has no implementation; ``torch.export`` records it as one opaque node
+(``ops.egcl_pair``'s op says more). Where autograd records (grad mode on
+and an input requires grad) it runs through ``ops.edge_grad.
 EdgeFunction``, the port of the JAX package's ``custom_vjp``
 (``ops/egcl_pallas_sparse.py:266-333``): the kernel (or the plain statement
 on the CPU) forward on detached inputs, autograd of the plain statement in
@@ -232,11 +236,12 @@ def egcl_knn_edges(am_i, ax_i, h, x, idx, edge_mask, wm_j, wx_j, w_dm, w_dx,
                                   idx.shape[-1],
                                   max(w2x.shape[-1], w2m.shape[-1]), (4, 5),
                                   *args)
-    return forward(*(a.detach() for a in args))
+    return egcl_knn_op(*(a.detach() for a in args))
 
 
 def _launch(*args):
-    """The kernel on CUDA tensors that require no grad, or raise."""
+    """The kernel on CUDA tensors that require no grad, or raise: the
+    op's CUDA implementation."""
     global egcl_knn_launches, last_rows
     am_i, h, idx, w2m = args[0], args[2], args[4], args[10]
     device = am_i.device
@@ -260,3 +265,20 @@ def _launch(*args):
     egcl_knn_launches += 1
     last_rows = rows
     return m_sum, x_out
+
+
+# The custom op, as ops.egcl_pair's.
+egcl_knn_op = torch.library.custom_op(
+    "diffusion_model_tpu_torch::egcl_knn", _launch, mutates_args=(),
+    device_types="cuda",
+    schema="(" + ", ".join(f"Tensor {n}" for n in _NAMES)
+    + ") -> (Tensor, Tensor)")
+egcl_knn_op.register_kernel("cpu", egcl_knn_edges_reference)
+
+
+@egcl_knn_op.register_fake
+def _(*args):
+    am_i, w2m = args[0], args[10]
+    b, n = am_i.shape[:2]
+    return (am_i.new_empty((b, n, w2m.shape[-1]), dtype=torch.float32),
+            am_i.new_empty((b, n, 3), dtype=torch.float32))

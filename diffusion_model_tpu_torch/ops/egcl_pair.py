@@ -31,14 +31,18 @@ device memory and the j-sums need no atomics. A float32 variant walks the
 padded grid with plain FMAs. ``last_rows`` holds the tile rows the last
 launch computed (an int32 on the card).
 
-On CPU tensors ``egcl_pair_edges`` runs ``egcl_pair_edges_reference``; on
-CUDA tensors it launches the kernel or raises. Where autograd records (grad
-mode on and an input requires grad) it runs through ``ops.edge_grad.
-EdgeFunction``, the port of the JAX package's ``custom_vjp``
-(``ops/egcl_pallas.py:290-322``): the kernel (or the plain statement on the
-CPU) forward on detached inputs, autograd of the plain statement in float32
-backward. The launch itself (``_launch``) refuses an input that requires
-grad.
+Where autograd does not record, ``egcl_pair_edges`` calls the custom op
+``torch.ops.diffusion_model_tpu_torch.egcl_pair`` (``egcl_pair_op``), which
+dispatches by device: on CUDA tensors it launches the kernel or raises, on
+CPU tensors it runs ``egcl_pair_edges_reference``, and on any other device
+it has no implementation. Its fake implementation gives the outputs' shapes,
+so ``torch.export`` records the op as one opaque node (the serving export,
+``serve.py``). Where autograd records (grad mode on and an input requires
+grad) ``egcl_pair_edges`` runs through ``ops.edge_grad.EdgeFunction``, the
+port of the JAX package's ``custom_vjp`` (``ops/egcl_pallas.py:290-322``):
+the kernel (or the plain statement on the CPU) forward on detached inputs,
+autograd of the plain statement in float32 backward. The launch itself
+(``_launch``) refuses an input that requires grad.
 """
 
 from __future__ import annotations
@@ -269,11 +273,12 @@ def egcl_pair_edges(am_i, am_j, ax_i, ax_j, x, mask, w_dm, w_dx, w2m, b2m,
                                   am_i.shape[1],
                                   max(w2x.shape[-1], w2m.shape[-1]), (5,),
                                   *args)
-    return forward(*(a.detach() for a in args))
+    return egcl_pair_op(*(a.detach() for a in args))
 
 
 def _launch(*args):
-    """The kernel on CUDA tensors that require no grad, or raise."""
+    """The kernel on CUDA tensors that require no grad, or raise: the
+    op's CUDA implementation."""
     global egcl_pair_launches, last_rows
     am_i, w2m = args[0], args[8]
     device = am_i.device
@@ -298,3 +303,21 @@ def _launch(*args):
     egcl_pair_launches += 1
     last_rows = rows
     return m_sum, x_out
+
+
+# The custom op: the kernel on CUDA tensors, the plain statement on CPU
+# tensors, no implementation on any other device.
+egcl_pair_op = torch.library.custom_op(
+    "diffusion_model_tpu_torch::egcl_pair", _launch, mutates_args=(),
+    device_types="cuda",
+    schema="(" + ", ".join(f"Tensor {n}" for n in _NAMES)
+    + ") -> (Tensor, Tensor)")
+egcl_pair_op.register_kernel("cpu", egcl_pair_edges_reference)
+
+
+@egcl_pair_op.register_fake
+def _(*args):
+    am_i, w2m = args[0], args[8]
+    b, n = am_i.shape[:2]
+    return (am_i.new_empty((b, n, w2m.shape[-1]), dtype=torch.float32),
+            am_i.new_empty((b, n, 3), dtype=torch.float32))

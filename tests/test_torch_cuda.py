@@ -241,6 +241,29 @@ def test_knn_grad_inputs_refused_on_the_card(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["pair", "knn"])
+def test_custom_ops_launch_the_kernels_on_the_card(cuda_device, kind):
+    """The op's CUDA implementation is the launch (counted once a call),
+    bit for bit ``_launch``; ``opcheck`` holds its fake implementation."""
+    if kind == "pair":
+        mod, counter = egcl_pair, "egcl_pair_launches"
+        op, args = mod.egcl_pair_op, edge_args(
+            edge_inputs(15, b=4, n=16, f1=1024, fm=256), cuda_device,
+            torch.bfloat16)
+    else:
+        mod, counter = egcl_knn, "egcl_knn_launches"
+        op, args = mod.egcl_knn_op, knn_args(
+            knn_inputs(15, b=4, n=16, k=15, hdim=36, f1=1024, fm=256),
+            cuda_device, torch.bfloat16)
+    before = getattr(mod, counter)
+    got = op(*args)
+    assert getattr(mod, counter) == before + 1
+    for a, b in zip(got, mod._launch(*args)):
+        assert torch.equal(a, b)
+    torch.library.opcheck(op, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["pair", "knn"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_edge_function_trains_through_the_kernel(cuda_device, kind, dtype):
     """Where grad is on, the edge function launches its kernel once and

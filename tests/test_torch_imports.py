@@ -111,3 +111,26 @@ def test_the_full_width_replayer_and_its_start_import_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_serving_loads_no_model_code():
+    """``serve`` and the two op modules, all a serving process imports,
+    load none of the model modules, the JAX package or JAX."""
+    model = tuple(f"diffusion_model_tpu_torch.{m}" for m in (
+        "api", "config", "data", "diffusion", "nn", "train", "evals", "cli",
+        "parallel"))
+    code = "\n".join([
+        "import sys",
+        "import diffusion_model_tpu_torch.serve",
+        "import diffusion_model_tpu_torch.ops.egcl_pair",
+        "import diffusion_model_tpu_torch.ops.egcl_knn",
+        f"refused = {model + BLOCKED!r}",
+        "loaded = [m for m in sys.modules if any(",
+        "    m == r or m.startswith(r + '.') for r in refused)]",
+        "assert not loaded, loaded",
+        "print('ok')",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"

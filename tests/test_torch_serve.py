@@ -1,8 +1,10 @@
 """The serving export (``serve.py``, ``cli/export.py``) against the JAX
-package's: the served chain and its redraw rounds on JAX's draws, a written
-artifact bit for bit the port's live sampler on every topology and option,
-the sidecar's keys, the refusals, and ``cli.export`` with ``--calibrate``
-on a run the port trained."""
+package's: the served chain (the exported pieces and the loader's loop)
+and its redraw rounds on JAX's draws, a written artifact bit for bit the
+port's live sampler on every topology and option, the sidecar's keys, the
+refusals, and ``cli.export`` with ``--calibrate`` on a run the port
+trained. ``tests/test_torch_serve_export.py`` holds the artifact in a
+process that cannot import the model code."""
 
 import json
 
@@ -66,13 +68,14 @@ def amplifying(factor):
 
 def run_both(factor, retry_rounds, seed=7, b=8, n=4):
     """(JAX's (pos, accepted), the port's) of the served chain at ``seed``,
-    the port's rounds replaying JAX's draws (round 0 ``PRNGKey(seed)``,
-    round i ``fold_in`` of it)."""
+    the port's exported pieces driven by its loader, its rounds replaying
+    JAX's draws (round 0 ``PRNGKey(seed)``, round i ``fold_in`` of it)."""
     d = {**TINY, "n_max": n, "num_diffusion_timestep": 3}
     jcfg, cfg = JaxConfig(**d), Config(**d)
     alphas = np.array(jax_poly(3, s=0.05, power=2.0))
     jax_fn, port_fn = amplifying(factor)
-    spectrum, exo, mask, species = inputs(b, n)
+    # the exported pieces take the config's spectrum width
+    spectrum, exo, mask, species = inputs(b, n, s=cfg.spectrum_input_size)
     fn = jax.jit(jax_serve._sampler_fn(
         jcfg, jax_fn, JaxSchedule(alphas=jnp.asarray(alphas)),
         retry_rounds=retry_rounds))
@@ -83,9 +86,10 @@ def run_both(factor, retry_rounds, seed=7, b=8, n=4):
         key = base if i == 0 else jax.random.fold_in(base, i)
         return Replay(jax_sample_draws(key, b, n, 2, 3, True))
 
-    port = serve._sampler_fn(cfg, port_fn,
-                             Schedule(alphas=torch.from_numpy(alphas)),
-                             retry_rounds, noise_for_round)
+    programs, layout = serve.chain_programs(
+        cfg, port_fn, Schedule(alphas=torch.from_numpy(alphas)), b, "cpu")
+    port = serve._sampler_fn({k: ep.module() for k, ep in programs.items()},
+                             layout, retry_rounds, noise_for_round)
     pos, _, acc = port(seed, *(torch.from_numpy(a) for a in
                                (spectrum, exo, mask, species)))
     return (np.asarray(jpos), np.asarray(jacc)), (pos.numpy(), acc.numpy())
