@@ -37,9 +37,12 @@ has no implementation; ``torch.export`` records it as one opaque node
 and an input requires grad) it runs through ``ops.edge_grad.
 EdgeFunction``, the port of the JAX package's ``custom_vjp``
 (``ops/egcl_pallas_sparse.py:266-333``): the kernel (or the plain statement
-on the CPU) forward on detached inputs, autograd of the plain statement in
-float32 backward; ``idx`` and ``edge_mask`` get no gradient. The launch
-itself (``_launch``) refuses an input that requires grad.
+on the CPU) forward on detached inputs, and backward autograd of the
+float32 reference where the compute dtype is float32, else of
+``egcl_knn_edges_compute``, the statement the JAX package's training
+differentiates (F11, ``ROADMAP.md`` §3); ``idx`` and ``edge_mask`` get no
+gradient. The launch itself (``_launch``) refuses an input that requires
+grad.
 """
 
 from __future__ import annotations
@@ -53,7 +56,12 @@ import torch.nn.functional as F
 
 from diffusion_model_tpu_torch.ops import _tiles
 from diffusion_model_tpu_torch.ops.edge_grad import EdgeFunction, wants_grad
-from diffusion_model_tpu_torch.ops.egcl_pair import add_rbf, refuse_rbf
+from diffusion_model_tpu_torch.ops.egcl_pair import (
+    add_rbf,
+    compute_rbf,
+    compute_tail,
+    refuse_rbf,
+)
 
 # Launches of the CUDA kernel in this process; only egcl_knn_edges adds to
 # it, right after a launch was accepted.
@@ -105,6 +113,36 @@ def egcl_knn_edges_reference(am_i, ax_i, h, x, idx, edge_mask, wm_j, wx_j,
                                   torch.ones_like(d2)))
     upd = diff * s / (norm + 1.0) * em
     return m_sum, x_i + upd.sum(dim=2)
+
+
+def egcl_knn_edges_compute(am_i, ax_i, h, x, idx, edge_mask, wm_j, wx_j,
+                           w_dm, w_dx, w2m, b2m, wa, ba, w2x, b2x, wx3,
+                           bx3, rbf=None, targets: slice = slice(None)):
+    """The same edge work in the compute dtype ``am_i.dtype``, as the JAX
+    package's flax ``EGCL._sparse_call`` computes it dtype for dtype (its
+    training route): the j-side projection ``h_j @ W_j`` (JAX projects per
+    node, then gathers: the same products, rounded once; gathering the
+    narrow ``h`` keeps the backward's scatter narrow); the first-layer
+    sum, the second layers, the SiLUs, the gate, the heads and the masked
+    sum over the slots in the compute dtype; the geometry in float32,
+    ``d2`` rounded to the compute dtype for the first layer
+    (``ops.egcl_pair.egcl_pair_edges_compute`` says more). Same arguments
+    as ``egcl_knn_edges_reference``. Returns (m_sum [B,T,Fm] in the
+    compute dtype, x_out [B,T,3] float32)."""
+    dt, f32 = am_i.dtype, torch.float32
+    x = x.to(f32)
+    idx = idx[:, targets]
+    x_i = x[:, targets]
+    diff = x_i[:, :, None, :] - gather_nodes(x, idx)
+    d2 = (diff * diff).sum(dim=-1, keepdim=True)             # [B,T,K,1]
+    em = edge_mask[:, targets, :, None].to(f32)
+    h_j, d2_c = gather_nodes(h.to(dt), idx), d2.to(dt)     # [B,T,K,H]
+    pre_m = am_i[:, targets, None, :] + h_j @ wm_j.to(dt) + d2_c * w_dm.to(dt)
+    pre_x = ax_i[:, targets, None, :] + h_j @ wx_j.to(dt) + d2_c * w_dx.to(dt)
+    if rbf is not None:
+        pre_m, pre_x = compute_rbf(pre_m, pre_x, d2, em > 0, *rbf)
+    return compute_tail(pre_m, pre_x, em, diff, d2, x_i, w2m, b2m, wa, ba,
+                        w2x, b2x, wx3, bx3)
 
 
 def edge_tiles(idx, edge_mask) -> _tiles.EdgeTiles:
@@ -232,7 +270,10 @@ def egcl_knn_edges(am_i, ax_i, h, x, idx, edge_mask, wm_j, wx_j, w_dm, w_dx,
     else:
         raise ValueError(f"no EGCL kNN kernel for device {device}")
     if wants_grad(args):
-        return EdgeFunction.apply(forward, egcl_knn_edges_reference,
+        statement = (egcl_knn_edges_reference
+                     if am_i.dtype == torch.float32
+                     else egcl_knn_edges_compute)
+        return EdgeFunction.apply(forward, statement,
                                   idx.shape[-1],
                                   max(w2x.shape[-1], w2m.shape[-1]), (4, 5),
                                   *args)

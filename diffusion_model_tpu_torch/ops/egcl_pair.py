@@ -41,8 +41,10 @@ so ``torch.export`` records the op as one opaque node (the serving export,
 grad) ``egcl_pair_edges`` runs through ``ops.edge_grad.EdgeFunction``, the
 port of the JAX package's ``custom_vjp`` (``ops/egcl_pallas.py:290-322``):
 the kernel (or the plain statement on the CPU) forward on detached inputs,
-autograd of the plain statement in float32 backward. The launch itself
-(``_launch``) refuses an input that requires grad.
+and backward autograd of the float32 reference where the compute dtype is
+float32, else of ``egcl_pair_edges_compute``, the statement the JAX
+package's training differentiates (F11, ``ROADMAP.md`` §3). The launch
+itself (``_launch``) refuses an input that requires grad.
 """
 
 from __future__ import annotations
@@ -105,6 +107,95 @@ def egcl_pair_edges_reference(am_i, am_j, ax_i, ax_j, x, mask, w_dm, w_dx,
                                       torch.ones_like(d2)))
     upd = diff * s / (norm + 1.0) * pm
     return m_sum, x_i + upd.sum(dim=2)
+
+
+def egcl_pair_edges_compute(am_i, am_j, ax_i, ax_j, x, mask, w_dm, w_dx,
+                            w2m, b2m, wa, ba, w2x, b2x, wx3, bx3, rbf=None,
+                            targets: slice = slice(None), norm=None):
+    """The same edge work in the compute dtype ``am_i.dtype``, as the JAX
+    package's flax ``EGCL._dense_call`` computes it dtype for dtype (its
+    training route, which reaches no Pallas kernel): every weight cast to
+    the compute dtype as ``Dense(dtype=dt)`` casts it, the first-layer sum,
+    the second layers, the SiLUs, the gate, the heads and the masked sum
+    over sources in the compute dtype; the geometry (``diff``, ``d2``, the
+    norm, the update) in float32, ``d2`` rounded to the compute dtype for
+    the first layer. Same arguments as ``egcl_pair_edges_reference``.
+    Returns (m_sum [B,T,Fm] in the compute dtype, x_out [B,T,3] float32);
+    in float32 it is the reference up to rounding order."""
+    dt, f32 = am_i.dtype, torch.float32
+    x = x.to(f32)
+    n = am_i.shape[1]
+    x_i = x[:, targets]
+    diff = x_i[:, :, None, :] - x[:, None, :, :]            # [B,T,N,3]
+    d2 = (diff * diff).sum(dim=-1, keepdim=True)            # [B,T,N,1]
+    m3 = mask.to(f32)
+    eye = torch.eye(n, dtype=f32, device=x.device)[targets]
+    pm = (m3[:, targets, None, :] * m3[:, None, :, :]
+          * (1.0 - eye)[None, :, :, None])
+    d2_c = d2.to(dt)
+    pre_m = am_i[:, targets, None, :] + am_j[:, None, :, :] + d2_c * w_dm.to(dt)
+    pre_x = ax_i[:, targets, None, :] + ax_j[:, None, :, :] + d2_c * w_dx.to(dt)
+    if rbf is not None:
+        pre_m, pre_x = compute_rbf(pre_m, pre_x, d2, pm > 0, *rbf)
+    return compute_tail(pre_m, pre_x, pm, diff, d2, x_i, w2m, b2m, wa, ba,
+                        w2x, b2x, wx3, bx3, norm)
+
+
+class _Logistic(torch.autograd.Function):
+    """The sigmoid as the JAX package's ``jax.nn.sigmoid`` computes it
+    (``lax.logistic``, lowered as ``1 / (1 + exp(-x))`` with each op
+    rounded to the dtype; its derivative ``g * (s * (1 - s))``). In
+    bfloat16 torch's one-op ``sigmoid`` and ``silu`` round once, which puts
+    the statement's outputs as far from JAX's as the float32 statement's
+    (``tests/test_torch_compute_statement.py``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = torch.reciprocal(1 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1 - s))
+
+
+def logistic(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` in ``x``'s dtype (``_Logistic``)."""
+    return _Logistic.apply(x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` in ``x``'s dtype: ``x * sigmoid(x)``, two roundings."""
+    return x * logistic(x)
+
+
+def compute_rbf(pre_m, pre_x, d2, valid, w_rbf_m, w_rbf_x, rmax):
+    """``add_rbf`` in ``pre_m``'s dtype: the features rounded to it and
+    each term a product in it, as the JAX package's ``rbf_m`` / ``rbf_x``
+    ``Dense(dtype=dt)`` compute them."""
+    dt = pre_m.dtype
+    rbf = rbf_features(d2, valid, w_rbf_m.shape[0], rmax).to(dt)
+    return pre_m + rbf @ w_rbf_m.to(dt), pre_x + rbf @ w_rbf_x.to(dt)
+
+
+def compute_tail(pre_m, pre_x, em, diff, d2, x_i, w2m, b2m, wa, ba, w2x,
+                 b2x, wx3, bx3, norm=None):
+    """The compute-dtype statements' work after the first layers, in
+    ``pre_m``'s dtype but the geometry: (m_sum, x_i + the update).
+    ``em`` is the float32 edge (or pair) mask ``[B, T, S, 1]``; ``norm``
+    the dense per-graph divisor, else each edge's length."""
+    dt, f32 = pre_m.dtype, torch.float32
+    m = silu(silu(pre_m) @ w2m.to(dt) + b2m.to(dt))
+    m = m * logistic(m @ wa.to(dt) + ba.to(dt)) * em.to(dt)
+    u = silu(silu(pre_x) @ w2x.to(dt) + b2x.to(dt))
+    s = u @ wx3.to(dt) + bx3.to(dt)                         # [B,T,S,1]
+    if norm is None:
+        norm = torch.sqrt(torch.where(em > 0, d2.clamp_min(1e-12),
+                                      torch.ones_like(d2)))
+    upd = diff * (s.to(f32) / (norm + 1.0)) * em
+    return m.sum(dim=2), x_i + upd.sum(dim=2)
 
 
 def compat_norm(x: torch.Tensor, node_mask: torch.Tensor) -> torch.Tensor:
@@ -269,7 +360,10 @@ def egcl_pair_edges(am_i, am_j, ax_i, ax_j, x, mask, w_dm, w_dx, w2m, b2m,
     else:
         raise ValueError(f"no EGCL pair kernel for device {device}")
     if wants_grad(args):
-        return EdgeFunction.apply(forward, egcl_pair_edges_reference,
+        statement = (egcl_pair_edges_reference
+                     if am_i.dtype == torch.float32
+                     else egcl_pair_edges_compute)
+        return EdgeFunction.apply(forward, statement,
                                   am_i.shape[1],
                                   max(w2x.shape[-1], w2m.shape[-1]), (5,),
                                   *args)

@@ -267,17 +267,23 @@ def test_custom_ops_launch_the_kernels_on_the_card(cuda_device, kind):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_edge_function_trains_through_the_kernel(cuda_device, kind, dtype):
     """Where grad is on, the edge function launches its kernel once and
-    its gradients are autograd of the plain statement (``ops.edge_grad``)."""
+    its gradients are autograd of a plain statement (``ops.edge_grad``):
+    the float32 reference in float32, the compute-dtype statement in
+    bfloat16 (F11, ``ROADMAP.md`` §3)."""
     if kind == "pair":
         fn, ref, counter = (egcl_pair.egcl_pair_edges,
-                            egcl_pair.egcl_pair_edges_reference,
+                            egcl_pair.egcl_pair_edges_reference
+                            if dtype == torch.float32
+                            else egcl_pair.egcl_pair_edges_compute,
                             "egcl_pair_launches")
         module, data = egcl_pair, {5}
         args = edge_args(edge_inputs(20, f1=64, fm=64, n_real=(13, 16)),
                          cuda_device, dtype)
     else:
         fn, ref, counter = (egcl_knn.egcl_knn_edges,
-                            egcl_knn.egcl_knn_edges_reference,
+                            egcl_knn.egcl_knn_edges_reference
+                            if dtype == torch.float32
+                            else egcl_knn.egcl_knn_edges_compute,
                             "egcl_knn_launches")
         module, data = egcl_knn, {4, 5}
         args = knn_args(knn_inputs(20, k=6, hdim=36, f1=64, fm=64),
@@ -292,7 +298,9 @@ def test_edge_function_trains_through_the_kernel(cuda_device, kind, dtype):
     cot = [torch.randn(o.shape, generator=g, device=cuda_device)
            for o in out]
     got = torch.autograd.grad(out, diff, cot)
-    want = torch.autograd.grad(ref(*leaves), diff, cot)
+    back = ref(*leaves)
+    want = torch.autograd.grad(back, diff, [c.to(b.dtype)
+                                            for c, b in zip(cot, back)])
     for a, b in zip(got, want):
         assert a.dtype == b.dtype
         torch.testing.assert_close(a.float(), b.float(), rtol=5e-3,

@@ -170,7 +170,9 @@ def test_needs_the_card_unless_asked(monkeypatch, capsys):
                                        ("size_gen_192_hres_vn_seed2027",
                                         2027),
                                        ("size_gen_192_hres_vn_seed2028",
-                                        2028)])
+                                        2028),
+                                       ("size_gen_192_hres_vn_seed2024_2b",
+                                        2024)])
 def test_the_cards_retrain_record(name, seed):
     with open(os.path.join(FIXTURES, name + ".json")) as f:
         out = json.load(f)

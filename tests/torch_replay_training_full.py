@@ -18,6 +18,14 @@ and for each leaf, and the verdict of ``verdict`` (the rule of F9 in
 ``ROADMAP.md`` §3). On the card a 150-step run of both tracks takes a few
 minutes (``seconds`` in the record).
 
+With ``--variants`` (F9 step (d), ``ROADMAP.md`` §3) it runs the float32
+track once and the bfloat16 track of each variant of ``VARIANTS``, reads
+each by ``vnode_group_gaps`` and decides by ``names_the_cause`` and
+``verdict`` (record ``tests/fixtures/torch_port/f9_variants_card.json``):
+
+    python tests/torch_replay_training_full.py --device cuda --variants \\
+        --out build/f9_variants_card.json
+
 Also here, numpy only, for both sides:
 
   * ``numpy_start``: the start both packages train from. Each leaf is a
@@ -33,6 +41,7 @@ Also here, numpy only, for both sides:
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import sys
@@ -402,12 +411,149 @@ def parting_leaves(meta: dict, port: dict, factor: float = BF16_FACTOR
     return out
 
 
+# -- F9 step (d): the virtual-node channel's measure and rule ----------------
+VNODE_GAP_LEAVES = ("vnode_in.bias", "vnode_pool.bias", "vnode_x.bias",
+                    "vnode_x_head.bias", "vnode_x_head.kernel")
+VNODE_GAP_STEP = 150
+VNODE_GAP_BAND = 2.0      # percent; JAX's own bf16 reads -0.34..+0.98 there
+AS_IS_GAPS = (-3.43, -3.41, -3.48, -3.37, -3.12)   # train_replay_full_card
+AS_IS_TOL = 0.5           # points
+
+
+def vnode_group_gaps(names: list, norms, f32_norms, layers: int = 5) -> list:
+    """Per layer, the mean over ``VNODE_GAP_LEAVES`` of each leaf's norm
+    against JAX's float32 norm, ``100 * (norm / f32_norm - 1)`` (percent).
+    ``names`` is the sketch's leaf order (``meta["sketch"]["names"]``)."""
+    pos = {n: i for i, n in enumerate(names)}
+    return [float(np.mean([
+        100.0 * (norms[i] / f32_norms[i] - 1.0)
+        for i in (pos[f"denoiser.egnn.egcl_{l}.{leaf}"]
+                  for leaf in VNODE_GAP_LEAVES)])) for l in range(layers)]
+
+
+def names_the_cause(gaps: list) -> bool:
+    """A variant names the cause when every layer's mean lies within
+    ``VNODE_GAP_BAND`` points of JAX's float32 track."""
+    return all(abs(g) <= VNODE_GAP_BAND for g in gaps)
+
+
+# -- the variants of F9 step (d) ---------------------------------------------
+# as_is: the route before F11's repair (K2 forward, the float32 reference's
+# gradient at float32 copies of the primals); 2b: the repaired port (K2
+# forward, the compute-dtype statement's gradient at the primals' dtype);
+# 2a: the compute-dtype statement forward and backward, no kernel; 3: as_is
+# with the virtual-node channel in float32.
+VARIANTS = ("as_is", "2b", "2a", "3")
+
+
+@functools.cache
+def _f32_backward():
+    """An ``ops.edge_grad.EdgeFunction`` whose backward is the float32
+    reference's gradient at float32 copies of the primals, each gradient
+    cast back to its primal's dtype: the port's backward before F11's
+    repair."""
+    from diffusion_model_tpu_torch.ops.edge_grad import (
+        EdgeFunction,
+        edge_vjp,
+    )
+
+    class F32Backward(EdgeFunction):
+        @staticmethod
+        def backward(ctx, g_m, g_x):
+            needs = [need and i not in ctx.data
+                     for i, need in enumerate(ctx.needs_input_grad[5:])]
+            saved = ctx.saved_tensors
+            lifted = [p.float() if p.is_floating_point() else p
+                      for p in saved]
+            grads = edge_vjp(ctx.statement, lifted, (g_m, g_x), needs,
+                             ctx.sources, ctx.width)
+            return (None, None, None, None, None,
+                    *(g if g is None else g.to(p.dtype)
+                      for g, p in zip(grads, saved)))
+
+    return F32Backward
+
+
+def variant_edge_fns(variant: str) -> dict:
+    """``Trainer`` keywords of a variant's edge functions (the defaults,
+    an empty dict, for ``2b``)."""
+    from diffusion_model_tpu_torch.nn.egnn import plain_edges
+    from diffusion_model_tpu_torch.ops import egcl_knn, egcl_pair
+    from diffusion_model_tpu_torch.ops.edge_grad import wants_grad
+
+    def width(w2m, w2x):
+        return max(w2m.shape[-1], w2x.shape[-1])
+
+    if variant in ("as_is", "3"):
+        def pair(*a):
+            if not wants_grad(a):
+                return egcl_pair.egcl_pair_edges(*a)
+            fwd = (egcl_pair._launch if a[0].is_cuda
+                   else egcl_pair.egcl_pair_edges_reference)
+            return _f32_backward().apply(
+                fwd, egcl_pair.egcl_pair_edges_reference, a[0].shape[1],
+                width(a[8], a[12]), (5,), *a)
+
+        def knn(*a):
+            if not wants_grad(a):
+                return egcl_knn.egcl_knn_edges(*a)
+            fwd = (egcl_knn._launch if a[0].is_cuda
+                   else egcl_knn.egcl_knn_edges_reference)
+            return _f32_backward().apply(
+                fwd, egcl_knn.egcl_knn_edges_reference, a[4].shape[-1],
+                width(a[10], a[14]), (4, 5), *a)
+
+        return {"edge_fn": pair, "knn_edge_fn": knn}
+    if variant == "2a":
+        def pair(*a):
+            return plain_edges(egcl_pair.egcl_pair_edges_compute, a,
+                               a[0].shape[1], width(a[8], a[12]))
+
+        def knn(*a):
+            return plain_edges(egcl_knn.egcl_knn_edges_compute, a,
+                               a[4].shape[-1], width(a[10], a[14]))
+
+        return {"edge_fn": pair, "knn_edge_fn": knn}
+    return {}
+
+
+class f32_virtual_channel:
+    """Variant ``3``: within the block every EGCL's virtual-node channel
+    runs in float32 (its input features and weights), the rest of the layer
+    as it is."""
+    NAMES = ("vnode_in", "vnode_pool", "vnode_out", "vnode_x", "vnode_x_head")
+
+    def __enter__(self):
+        import torch
+
+        from diffusion_model_tpu_torch.nn.egnn import EGCL
+
+        self.orig = orig = EGCL._virtual_channel
+
+        def channel(layer, h_c, x_f, node_mask, w):
+            f32 = torch.float32
+            return orig(layer, h_c.to(f32), x_f, node_mask,
+                        {n: getattr(layer, n).cast(f32) for n in self.NAMES})
+
+        EGCL._virtual_channel = channel
+        return self
+
+    def __exit__(self, *exc):
+        from diffusion_model_tpu_torch.nn.egnn import EGCL
+
+        EGCL._virtual_channel = self.orig
+
+
 # -- the port's replay ------------------------------------------------------
 def replay_track(meta: dict, npz, dtype: str, steps: int, device,
-                 sketch: Sketch = None, log=None) -> dict:
-    """The port's ``dtype`` track for ``steps`` steps: losses, gradient
-    norms and, where ``sketch`` is given, the estimated gap to JAX's track
-    at every record step."""
+                 sketch: Sketch = None, log=None,
+                 variant: str = "as_is") -> dict:
+    """The port's ``dtype`` track for ``steps`` steps, as ``variant``
+    (``VARIANTS``; ``as_is`` the port as it is): losses, gradient norms
+    and, where ``sketch`` is given, the estimated gap to JAX's track at
+    every record step."""
+    import contextlib
+
     import torch
 
     from diffusion_model_tpu_torch.train.trainer import Trainer
@@ -415,7 +561,9 @@ def replay_track(meta: dict, npz, dtype: str, steps: int, device,
 
     cfg, cells = setup()
     cfg = cfg.replace(compute_dtype=dtype)
-    trainer = Trainer(cfg, device=device)
+    trainer = Trainer(cfg, device=device, **variant_edge_fns(variant))
+    scope = (f32_virtual_channel() if variant == "3"
+             else contextlib.nullcontext())
     state = trainer.init_state(0, params=numpy_start(meta["start"]["spec"],
                                                      meta["start"]["seed"]))
     it = port_batches(cfg, cells, device)
@@ -423,8 +571,9 @@ def replay_track(meta: dict, npz, dtype: str, steps: int, device,
     rec = {"loss": [], "grad_norm": [], "records": []}
     t0 = time.perf_counter()
     for k in range(steps):
-        state, m = trainer.train_step(
-            state, ReplayDraws(draws_at(npz, k), device), next(it))
+        with scope:
+            state, m = trainer.train_step(
+                state, ReplayDraws(draws_at(npz, k), device), next(it))
         rec["loss"].append(float(m["loss"]))
         rec["grad_norm"].append(float(m["grad_norm"]))
         if sketch is not None and k + 1 in want:
@@ -434,7 +583,7 @@ def replay_track(meta: dict, npz, dtype: str, steps: int, device,
             rec["records"].append({"step": k + 1, "gap": g,
                                    "norms": s["norms"].tolist()})
             if log:
-                log(f"{dtype} step {k + 1}: loss {rec['loss'][-1]:.6f} "
+                log(f"{variant} {dtype} step {k + 1}: loss {rec['loss'][-1]:.6f} "
                     f"(JAX {meta['tracks'][dtype]['loss'][k]:.6f}), tree "
                     f"gap {g['tree']:.3e}, "
                     f"{time.perf_counter() - t0:.1f} s")
@@ -488,17 +637,104 @@ def replay(steps: int = STEPS, device="cuda", tracks=TRACKS,
     return out
 
 
+def replay_variants(variants=VARIANTS, steps: int = STEPS, device="cuda",
+                    log=None) -> dict:
+    """F9 step (d): the float32 track once, then the bfloat16 track of each
+    of ``variants``, each read by ``vnode_group_gaps`` at every record step
+    and held by ``verdict`` (with the one float32 track) and
+    ``names_the_cause`` at ``VNODE_GAP_STEP``. ``decision`` is the first of
+    2b, 2a, 3 that names the cause (None where none does); ``as_is_held``
+    whether ``as_is`` reproduces ``AS_IS_GAPS`` within ``AS_IS_TOL``."""
+    import torch
+
+    meta, npz = load_fixture()
+    names = meta["sketch"]["names"]
+    start = port_leaves(numpy_start(meta["start"]["spec"],
+                                    meta["start"]["seed"]))
+    sketch = Sketch(start, meta["sketch"]["seed"], meta["sketch"]["k"],
+                    device=device)
+    check_inputs(meta, npz, sketch)
+    f32 = replay_track(meta, npz, "float32", steps, device, sketch, log)
+    out = {"recipe": meta["recipe"], "steps": steps, "device": str(device),
+           "torch": torch.__version__, "rule": {
+               "leaves": VNODE_GAP_LEAVES, "step": VNODE_GAP_STEP,
+               "band_points": VNODE_GAP_BAND, "as_is_record": AS_IS_GAPS,
+               "as_is_tol_points": AS_IS_TOL},
+           "float32": {"loss": f32["loss"], "grad_norm": f32["grad_norm"],
+                       "seconds": f32["seconds"]},
+           "variants": {}}
+    if torch.device(device).type == "cuda":
+        from chip_smoke import card_line
+
+        out["card"] = card_line()
+        out["kind"] = torch.cuda.get_device_name(0)
+    for v in variants:
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        bf = replay_track(meta, npz, "bfloat16", steps, device, sketch, log,
+                          variant=v)
+        gaps = {r["step"]: vnode_group_gaps(
+            names, r["norms"], npz[f"float32_{r['step']}_norms"])
+            for r in bf["records"]}
+        last = gaps[max(gaps)]
+        out["variants"][v] = {
+            "gaps_by_step": gaps, "gaps": last,
+            "names_the_cause": (max(gaps) == VNODE_GAP_STEP
+                                and names_the_cause(last)),
+            "verdict": verdict(meta, {"float32": f32, "bfloat16": bf},
+                               steps),
+            "loss": bf["loss"], "grad_norm": bf["grad_norm"],
+            "seconds": bf["seconds"]}
+        if log:
+            log(f"{v}: layer means {[round(g, 3) for g in last]} at step "
+                f"{max(gaps)}, outcome "
+                f"{out['variants'][v]['verdict']['outcome']}, "
+                f"{bf['seconds']:.1f} s")
+    rec = out["variants"]
+    if "as_is" in rec:
+        out["as_is_held"] = (max(rec["as_is"]["gaps_by_step"])
+                             == VNODE_GAP_STEP and all(
+            abs(g - w) <= AS_IS_TOL
+            for g, w in zip(rec["as_is"]["gaps"], AS_IS_GAPS)))
+    out["decision"] = decision(rec)
+    return out
+
+
+def decision(variants: dict):
+    """The first of 2b, 2a, 3 in ``variants`` (``replay_variants``'
+    records) that names the cause with ``verdict`` at outcome (i); None
+    where none does."""
+    return next((v for v in ("2b", "2a", "3") if v in variants
+                 and variants[v]["names_the_cause"]
+                 and variants[v]["verdict"]["outcome"] == "i"), None)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--device", default="cuda")
     p.add_argument("--steps", type=int, default=STEPS)
     p.add_argument("--out", default=str(CARD_RECORD))
+    p.add_argument("--variants", nargs="*", choices=VARIANTS,
+                   help="F9 step (d): the bfloat16 track of each variant "
+                        "(none given: all) against one float32 track")
     args = p.parse_args(argv)
     sys.path.insert(0, str(REPO))
     import torch
 
     torch.set_num_threads(min(8, os.cpu_count() or 1))
-    rec = replay(args.steps, args.device, log=lambda s: print(s, flush=True))
+    log = lambda s: print(s, flush=True)  # noqa: E731
+    if args.variants is not None:
+        rec = replay_variants(args.variants or VARIANTS, args.steps,
+                              args.device, log)
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(rec, f, indent=1)
+        print(json.dumps({"out": args.out, "decision": rec["decision"],
+                          "as_is_held": rec.get("as_is_held"),
+                          "gaps": {v: r["gaps"] for v, r in
+                                   rec["variants"].items()}}))
+        return 0
+    rec = replay(args.steps, args.device, log=log)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(rec, f, indent=1)
