@@ -7,15 +7,24 @@ Needs one CUDA card, ``nvcc`` and ``nvidia-smi``; imports nothing of JAX.
 Phases, each printed as one JSON line:
 
   1. toolchain: the card (``nvidia-smi``), CUDA, nvcc, and the build of the
-     six kernels from ``diffusion_model_tpu_torch/csrc/`` (both EGCL kernels
-     and the four probes; one nvcc each, started together), with the
-     tensor-core instructions of each library's SASS (``cuobjdump``): all
-     six on warpgroup MMA (HGMMA / IGMMA) and none on HMMA / IMMA;
+     seven kernels from ``diffusion_model_tpu_torch/csrc/`` (both EGCL
+     kernels, the four probes and the fused bias-SiLU; one nvcc each,
+     started together), with the tensor-core instructions of each product
+     library's SASS (``cuobjdump``): those six on warpgroup MMA (HGMMA /
+     IGMMA) and none on HMMA / IMMA;
   2. the pair kernel (K1) against its plain version at flagship width
      (F1=1024, Fm=256) on the inputs the main path gives it (B x N = 80 x 16
      and 1 x 192), float32 variant and bfloat16 variant, padded rows inert,
      and timed, with the tile rows the kernel computed (held to its
      schedule, ``edge_tiles``), the live edges and the rate over them;
+  2b. bias_silu (``ops/activations.py``, ``csrc/bias_silu.cu``: a bf16
+     bias add and SiLU rounded op by op as the JAX package rounds them, F12
+     in ``ROADMAP.md`` §3) against its op-by-op statement, bit for bit, at
+     the node side's shapes (``FUSED_SHAPES``), timed beside the statement
+     and torch's one-op ``F.silu`` (which rounds once); phase 4 counts its
+     launches (one a layer a denoiser call in bf16), phase 27 its node in
+     each served program's call, and ``flagship_routes`` holds a denoiser
+     call to at most ``PARENT_CALL_LAUNCHES`` + L runtime launches;
   3. the flagship denoiser on the card against the JAX goldens of
      ``tests/fixtures/torch_port/flagship.npz``;
   0b. data: the port's ``data.synthetic`` + ``data.split`` rebuild the
@@ -102,7 +111,8 @@ Phases, each printed as one JSON line:
  17. train_flagship: ``api.train`` with the flagship's recipe from a fresh
      init on its 256 graphs, 2 epochs (and 1 epoch on the kNN-15 route):
      losses, ms a train step, peak memory, launches (5 a forward), wall s;
-     the written npz generates one chunk through ``api.generate``;
+     the written npz generates one chunk through ``api.generate`` (one
+     round, no NaN retries: a model 8 steps from its init);
  18. train_learned: the learned recipe's 6000-step gamma fit on the card
      from JAX's initial parameters, within 1e-3 of JAX's alpha table, then
      one epoch with the gamma boundary term (gamma gradients nonzero);
@@ -112,8 +122,9 @@ Phases, each printed as one JSON line:
      uninterrupted one bit for bit (or, on a card that is not
      deterministic, within the gap between the two uninterrupted runs);
      3 steps kept, K1 5 times a forward; the checkpoint's save and restore
-     timed and its bytes; ``init_params_from`` and ``load_trained``; a
-     checkpoint of the flagship's weights reloaded and sampled;
+     timed and its bytes; ``init_params_from`` and ``load_trained`` (A's
+     chunk sampled in one round, no NaN retries); a checkpoint of the
+     flagship's weights reloaded and sampled;
  20. heads: the x0 and v coordinate heads (``x_parameterization``), each:
      the flagship's weights read as that head, one bf16 denoiser call
      through K1 against the plain statement at t = 1, 10, 500, 1000 (raw
@@ -274,7 +285,14 @@ LARGE_K = 32           # the 512-atom model class's neighbor_k
 LARGE_ATOMS = 2048
 MID_ATOMS = 512
 SERVED_LAUNCHES = 10010   # 2 chunks x 1001 denoiser calls x 5 layers
+# runtime launches of a flagship bf16 denoiser call after its first, before
+# F12's repair (phase flagship_routes, PR 20-21)
+PARENT_CALL_LAUNCHES = 103
 PLAIN_ROUTE_T = (0.2, 0.5, 0.9)   # t/T of the plain-route phase's calls
+# bias_silu's shapes, [rows, F]: the flagship's node MLP on the served 80 x
+# 16 chunk (the timed one), the F9 arm's (4 x 192 nodes) node MLP and
+# virtual-node pooling, and an odd width (the one-element path)
+FUSED_SHAPES = ((80 * 16, 1024), (4 * 192, 1024), (4, 256), (111, 1001))
 NUM_GRAPHS = 256       # dataset size both snapshots were trained on
 SHELLS = 2
 # The JAX package's scores of the two snapshots (rdf_cos mean, median, CN2
@@ -694,6 +712,62 @@ def phase_kernels(cfg, params, fx, cell, device) -> dict:
                                     "live_tflops")}}
 
 
+def phase_bias_silu(device) -> dict:
+    """The fused bias-SiLU kernel (``ops/activations.py``) against its
+    op-by-op statement on the card, bit for bit, at ``FUSED_SHAPES`` (a
+    normal draw, and a row swept over [-120, 120] where exp overflows);
+    timed at the first shape beside the statement, torch's one-op
+    ``F.silu`` of the sum (which rounds once: not the port's rounding) and
+    the form before F12, ``F.silu(v + b)``; the bound is bytes."""
+    import torch
+    import torch.nn.functional as F
+
+    from diffusion_model_tpu_torch.ops import activations
+    from diffusion_model_tpu_torch.probes._common import bound, nbytes
+
+    g = torch.Generator(device=device).manual_seed(22)
+    checks, timing = [], {}
+    with torch.no_grad():
+        for rows, f in FUSED_SHAPES:
+            v = (3 * torch.randn(rows, f, generator=g, device=device)).to(
+                torch.bfloat16)
+            v[0] = torch.linspace(-120, 120, f, device=device)
+            b = torch.randn(f, generator=g, device=device).to(torch.bfloat16)
+            got = activations.bias_silu_op(v, b)
+            want = activations.bias_silu_reference(v, b)
+            torch.cuda.synchronize()
+            differ = int((got.view(torch.int16)
+                          != want.view(torch.int16)).sum())
+            checks.append({"shape": [rows, f], "bits_differing": differ,
+                           "max_abs_err": float((got.float() - want.float())
+                                                .abs().max())})
+            if differ:
+                raise AssertionError(f"bias_silu is not its statement bit "
+                                     f"for bit: {checks[-1]}")
+            if not timing:
+                t = v + b
+                timing = {
+                    "shape": [rows, f],
+                    "ms": cuda_ms(lambda: activations.bias_silu_op(v, b),
+                                  50),
+                    "plain_ms": cuda_ms(
+                        lambda: activations.bias_silu_reference(v, b), 50),
+                    "library_ms": cuda_ms(lambda: F.silu(t), 50),
+                    "library_call": "F.silu(t) of t = v + b added before: "
+                                    "one op that rounds once, not JAX's "
+                                    "rounding",
+                    "f_silu_of_sum_ms": cuda_ms(lambda: F.silu(v + b), 50),
+                    **bound(nbytes(v, b, got))}
+    rec = {"phase": "bias_silu_vs_statement", "checks": checks, **timing,
+           "tolerance": "bit for bit"}
+    log(rec)
+    return {"max_abs_err": max(c["max_abs_err"] for c in checks),
+            **{k: timing[k] for k in ("ms", "plain_ms", "library_ms",
+                                      "library_call", "f_silu_of_sum_ms",
+                                      "bound_ms", "bound_by", "bound_kind",
+                                      "shape")}}
+
+
 def phase_knn_kernel(cfg, params, fx, device) -> dict:
     from diffusion_model_tpu_torch.data.synthetic import amorphous_cell
 
@@ -1010,13 +1084,14 @@ def phase_trajectory(cfg, params, graphs, device) -> None:
 def phase_generate(cfg, params, graphs, device):
     """Served generation; every EGCL must go through the kernel of the
     config's route (K2 with ``neighbor_k``, else K1) and none through the
-    other; the samples are scored against the JAX record. Returns that
-    kernel's launch count over exactly the run, and the result."""
+    other, and in bf16 the node MLP's first Dense through ``bias_silu``
+    once a layer; the samples are scored against the JAX record. Returns
+    the kernels' launch counts over exactly the run, and the result."""
     import torch
 
     from diffusion_model_tpu_torch import api
     from diffusion_model_tpu_torch.evals.restore_check import score
-    from diffusion_model_tpu_torch.ops import egcl_knn, egcl_pair
+    from diffusion_model_tpu_torch.ops import activations, egcl_knn, egcl_pair
 
     model = api.denoiser_from_params(cfg, params, device)
     calls = [0]
@@ -1025,6 +1100,7 @@ def phase_generate(cfg, params, graphs, device):
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
     egcl_pair.egcl_pair_launches = 0
     egcl_knn.egcl_knn_launches = 0
+    activations.bias_silu_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = api.generate(cfg, model, graphs, generator,
@@ -1033,7 +1109,8 @@ def phase_generate(cfg, params, graphs, device):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"egcl_pair": egcl_pair.egcl_pair_launches,
-                "egcl_knn": egcl_knn.egcl_knn_launches}
+                "egcl_knn": egcl_knn.egcl_knn_launches,
+                "bias_silu": activations.bias_silu_launches}
     route, other = (("egcl_knn", "egcl_pair") if cfg.neighbor_k
                     else ("egcl_pair", "egcl_knn"))
 
@@ -1056,6 +1133,11 @@ def phase_generate(cfg, params, graphs, device):
             f"{SERVED_LAUNCHES}: {rec}")
     if launches[other] != 0:
         raise AssertionError(f"{other} launched on the {route} route: {rec}")
+    # the node MLP's first Dense and its SiLU, once a layer in bf16
+    want_fused = SERVED_LAUNCHES if cfg.compute_dtype == "bfloat16" else 0
+    if launches["bias_silu"] != want_fused:
+        raise AssertionError(f"bias_silu launches {launches['bias_silu']} "
+                             f"!= {want_fused}: {rec}")
     si_o = median_si_o(out["generated_pos"], out["generated_species"],
                        out["mask"])
     si_o_ref = median_si_o(out["original_pos"], out["original_species"],
@@ -1071,7 +1153,7 @@ def phase_generate(cfg, params, graphs, device):
             f"median nearest Si-O {si_o} A is off the conditions' "
             f"{si_o_ref} A by more than {SI_O_TOLERANCE} A")
     check_gates(rec["quality"])
-    return launches[route], out
+    return launches, out
 
 
 def time_sample(model, schedule, cfg, cond, steps: int, seed: int = 0):
@@ -1310,10 +1392,16 @@ def launches_per_call(cfg, params, fx, device) -> dict:
         return {"device_kernels": len(device_kernels),
                 "runtime_launches": len(runtime)}
 
-    rec = {"first_call": kernels(), "next_call": kernels()}
+    rec = {"first_call": kernels(), "next_call": kernels(),
+           "parent_next_call_runtime_launches": PARENT_CALL_LAUNCHES}
     if not (rec["first_call"]["device_kernels"]
             > rec["next_call"]["device_kernels"] > 0):
         raise AssertionError(f"launches per denoiser call: {rec}")
+    # F12's bias adds after the node MLP's second product: at most one
+    # more launch a layer than before the repair
+    if rec["next_call"]["runtime_launches"] > PARENT_CALL_LAUNCHES + cfg.L:
+        raise AssertionError(f"a denoiser call launches more than "
+                             f"{PARENT_CALL_LAUNCHES} + L: {rec}")
     return rec
 
 
@@ -1594,12 +1682,13 @@ def phase_train_flagship(device, card: str, k: int = 0,
     if not k:
         # a model 8 steps from its init is not a sampler yet: its chain
         # may leave the finite range, so the samples' finite share is
-        # read, not gated (phase train_parity gates a trained model's)
+        # read, not gated (phase train_parity gates a trained model's),
+        # from one round without NaN retries (ten rounds took ~50 s)
         npz = str(run_dir / "params.npz")
         if load_config_npz(npz) != cfg:
             raise AssertionError("the npz's config is not the run's")
         rec["generated"] = generated_chunk(cfg, load_params_npz(npz), test,
-                                           device)
+                                           device, retries=0)
     log(rec)
     return rec
 
@@ -1636,7 +1725,8 @@ def phase_checkpoint_resume(device, card: str) -> dict:
     never. Then the save and restore of A's state timed and its bytes;
     ``init_params_from`` A for one epoch starts at A's eval parameters;
     ``load_trained`` on A gives A's eval parameters and generates one chunk
-    (its finite share read: a model 16 steps from its init); and a
+    (its finite share read: a model 16 steps from its init; one round,
+    without NaN retries); and a
     checkpoint holding the flagship's weights, reloaded by
     ``load_trained``, generates one chunk, every sample finite."""
     import os
@@ -1743,7 +1833,9 @@ def phase_checkpoint_resume(device, card: str) -> dict:
     loaded_params = loaded.eval_params(cfg)
     load_equal = all(torch.equal(loaded_params[k], want_params[k])
                      for k in want_params)
-    gen_a = generated_chunk(cfg, params_tree(loaded_params), test, device)
+    # a model 16 steps from its init: one round, no NaN retries
+    gen_a = generated_chunk(cfg, params_tree(loaded_params), test, device,
+                            retries=0)
     flagship_trainer = Trainer(cfg, device=device)
     flagship_state = flagship_trainer.init_state(
         cfg.seed, params=load_params_npz(str(SNAPSHOT)), skip_gamma_fit=True)
@@ -1893,15 +1985,19 @@ def phase_predict_sizes(cfg, params: dict, graphs: list, device,
         raise AssertionError(f"generation through size_predictor: {rec}")
 
 
-def generated_chunk(cfg, params: dict, graphs: list, device) -> dict:
+def generated_chunk(cfg, params: dict, graphs: list, device,
+                    retries: int | None = None) -> dict:
     """One chunk of ``api.generate`` (``GEN_BATCH`` conditions x
-    ``GEN_PER_CONDITION``, 1000 steps): its samples, finite rows as the
-    sampler flags them and as numpy reads them, accepted, K1 launches."""
+    ``GEN_PER_CONDITION``, 1000 steps; ``retries`` NaN-retry rounds in
+    place of the config's): its samples, finite rows as the sampler flags
+    them and as numpy reads them, accepted, K1 launches."""
     import numpy as np
 
     from diffusion_model_tpu_torch import api
     from diffusion_model_tpu_torch.ops import egcl_pair
 
+    if retries is not None:
+        cfg = cfg.replace(max_nan_retries=retries)
     before = egcl_pair.egcl_pair_launches
     out = api.generate(cfg, params, graphs[:GEN_BATCH], device=device)
     rows = np.isfinite(out["generated_pos"]).all(axis=(1, 2))
@@ -3654,13 +3750,14 @@ def serve_job(job: dict) -> dict:
     ``job`` loaded with ``serve.ServedSampler`` and called ``job["calls"]
     [name]`` times at ``job["seed"]`` on the inputs' spectra, each call's
     outputs saved to ``job["out"]``; its load seconds, each call's ms and
-    K1 / K2 launches (the op modules' counts), and one step's device
-    kernels. Imports only ``serve`` and the op modules of the port."""
+    K1 / K2 / ``bias_silu`` launches (the op modules' counts), and one
+    step's device kernels. Imports only ``serve`` and the op modules of the
+    port."""
     import numpy as np
     import torch
 
     from diffusion_model_tpu_torch import serve
-    from diffusion_model_tpu_torch.ops import egcl_knn, egcl_pair
+    from diffusion_model_tpu_torch.ops import activations, egcl_knn, egcl_pair
 
     with np.load(job["inputs"]) as f:
         args = [f[k] for k in ("spectrum", "exo", "mask")]
@@ -3674,6 +3771,7 @@ def serve_job(job: dict) -> dict:
                "calls": []}
         for i in range(job["calls"][name]):
             egcl_pair.egcl_pair_launches = egcl_knn.egcl_knn_launches = 0
+            activations.bias_silu_launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             pos, species, accepted = served(job["seed"], *args)
@@ -3681,7 +3779,8 @@ def serve_job(job: dict) -> dict:
             rec["calls"].append({
                 "ms": (time.perf_counter() - t0) * 1e3,
                 "egcl_pair": egcl_pair.egcl_pair_launches,
-                "egcl_knn": egcl_knn.egcl_knn_launches})
+                "egcl_knn": egcl_knn.egcl_knn_launches,
+                "bias_silu": activations.bias_silu_launches})
             np.savez(f"{job['out']}/{name}_{i}.npz", pos=pos,
                      species=species, accepted=accepted)
         out[name] = rec
@@ -3899,6 +3998,8 @@ def served_export_calls(child, graphs: list, device, card: str) -> dict:
         got = served["artifacts"][name]
         kernel = "egcl_knn" if c.neighbor_k else "egcl_pair"
         want = {"egcl_pair": 0, "egcl_knn": 0, kernel: per_call}
+        # the program's bias-SiLU node, once a layer in bf16 (F12)
+        want_fused = per_call if c.compute_dtype == "bfloat16" else 0
         first = got["outputs"][0]
         row = {"bytes": path.stat().st_size, "export_s": export_s,
                "load_s": got["load_s"], "calls": got["calls"],
@@ -3910,9 +4011,10 @@ def served_export_calls(child, graphs: list, device, card: str) -> dict:
         for call in got["calls"]:
             add(call)
             if ((name != "dense_retry2" or first[2].all())
-                    and {k: call[k] for k in want} != want):
+                    and ({k: call[k] for k in want} != want
+                         or call["bias_silu"] != want_fused)):
                 raise AssertionError(f"{name}: launches {call}, want "
-                                     f"{want}")
+                                     f"{want} and bias_silu {want_fused}")
         if name == "dense":
             row["repeat_equal"] = same_bits(*got["outputs"])
             if not row["repeat_equal"]:
@@ -4767,7 +4869,12 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from diffusion_model_tpu_torch.nn import egnn
-    from diffusion_model_tpu_torch.ops import _build, egcl_knn, egcl_pair
+    from diffusion_model_tpu_torch.ops import (
+        _build,
+        activations,
+        egcl_knn,
+        egcl_pair,
+    )
     from diffusion_model_tpu_torch.probes import (
         kernel_stages,
         matmul_rate,
@@ -4782,8 +4889,9 @@ def main() -> int:
     device = torch.device("cuda", 0)
     card = card_line()
     t0 = time.perf_counter()
-    modules = (egcl_pair, egcl_knn, matmul_rate, overlap, pipeline,
-               kernel_stages)
+    tensor_core = (egcl_pair, egcl_knn, matmul_rate, overlap, pipeline,
+                   kernel_stages)
+    modules = tensor_core + (activations,)
     _build.build_all([m._SOURCE for m in modules])
     for m in modules:
         m.build()
@@ -4791,7 +4899,7 @@ def main() -> int:
     log({"phase": "toolchain", "nvidia_smi": card,
          "torch": torch.__version__, "torch_cuda": torch.version.cuda,
          "nvcc": _build.find_nvcc(), "kernel_build_s": build_s,
-         "sass": check_sass([m._SOURCE for m in modules])})
+         "sass": check_sass([m._SOURCE for m in tensor_core])})
 
     cfg = load_config_npz(str(SNAPSHOT))
     params = load_params_npz(str(SNAPSHOT))
@@ -4810,9 +4918,11 @@ def main() -> int:
         return out
 
     pair = phase_kernels(cfg, params, fx, cell, device)
+    fused = phase_bias_silu(device)
     phase_denoiser(cfg, params, fx, device)
-    pair_launches, served = kernels_only("generate", phase_generate, cfg,
+    served_counts, served = kernels_only("generate", phase_generate, cfg,
                                          params, graphs, device)
+    pair_launches = served_counts["egcl_pair"]
     phase_score_devices(served, device)
     phase_evaluate_flagship(served, device, card)
     kernels_only("predict_sizes", phase_predict_sizes, cfg, params, graphs,
@@ -4823,9 +4933,10 @@ def main() -> int:
     knn = phase_knn_kernel(cfg, params, fx, device)
     phase_knn_is_dense(cfg, params, fx, device)
     phase_denoiser(cfg, params, fx, device, k=GOLDEN_K)
-    knn_launches, _ = kernels_only("generate_knn", phase_generate,
-                                   cfg.replace(neighbor_k=SERVED_K), params,
-                                   graphs, device)
+    knn_counts, _ = kernels_only("generate_knn", phase_generate,
+                                 cfg.replace(neighbor_k=SERVED_K), params,
+                                 graphs, device)
+    knn_launches = knn_counts["egcl_knn"]
     kernels_only("large_cell", phase_large_cell, cfg, params, device, card)
     grads = phase_train_grad(cfg, params, fx, device, card)
     kernels_only("train_parity", phase_train_parity, device, card)
@@ -4865,6 +4976,7 @@ def main() -> int:
     log({"phase": "flagship_routes", "plain_edge_calls": plain_calls,
          "egcl_pair_launches_served": pair_launches,
          "egcl_knn_launches_served": knn_launches,
+         "bias_silu_launches_served": served_counts["bias_silu"],
          "launches_per_denoiser_call": launches_per_call(
              cfg.replace(compute_dtype="bfloat16"), params, fx, device)})
     phase_plain_route(device)
@@ -4906,6 +5018,12 @@ def main() -> int:
          "cli_drivers_launches": drivers["k2_launches"],
          "served_launches": served_export["launches"]["egcl_knn"],
          "train_grad": grads["egcl_knn_64x16_k15_bfloat16"]},
+        {"name": "bias_silu", "route": "cuda",
+         "source": "diffusion_model_tpu_torch/csrc/bias_silu.cu",
+         "replaces": "none (no Pallas kernel): flax Dense bias + nn.silu, "
+                     "diffusion_model_tpu/nn/egnn.py:388, fused by XLA",
+         "launches": served_counts["bias_silu"], **fused,
+         "knn_served_launches": knn_counts["bias_silu"]},
         *probes,
     ]})
     print(card_line(), flush=True)

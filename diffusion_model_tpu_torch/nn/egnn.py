@@ -52,7 +52,12 @@ layer, layer 0 included.
 Parameters keep the flax layout: the fused first-layer ``kernel [2H+1, F]``
 and the ``[in, out]`` kernels the edge kernels and the virtual-node channel
 read; only the node MLP uses ``nn.Linear``. Geometry stays float32; the MLP
-matmuls run in the compute dtype.
+matmuls run in the compute dtype. Where that dtype is not float32, the
+virtual-node channel, and the node MLP where autograd does not record, add
+each bias after its product and take their SiLUs op by op (``silu_dense``,
+``node_mlp``: ``ops.activations``, the kernel ``bias_silu`` where autograd
+does not record), as the JAX package's flax modules round them; a float32
+model keeps ``F.linear`` and torch's one-op SiLU.
 """
 
 from __future__ import annotations
@@ -66,11 +71,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from diffusion_model_tpu_torch.ops import egcl_knn, egcl_pair
+from diffusion_model_tpu_torch.ops.activations import add_silu, bias_silu
 from diffusion_model_tpu_torch.ops.com import masked_mean
 from diffusion_model_tpu_torch.ops.edge_grad import (
     GRAPH_ARGS,
     PLAIN_EDGE_ELEMENTS,
     edge_chunks,
+    wants_grad,
 )
 from diffusion_model_tpu_torch.ops.edges import rbf_features  # noqa: F401
 from diffusion_model_tpu_torch.ops.egcl_knn import egcl_knn_edges
@@ -110,15 +117,18 @@ def edge_route(m_hidden: int, x_hidden: int, m_out: int, dtype: torch.dtype,
 def plain_edges(reference: Callable, args: tuple, sources: int, width: int,
                 budget: int = PLAIN_EDGE_ELEMENTS, norm=None):
     """``reference`` (``egcl_pair_edges_reference`` or
-    ``egcl_knn_edges_reference``) over ``args``, in chunks of whole graphs,
+    ``egcl_knn_edges_reference``; in a model whose compute dtype is not
+    float32 ``egcl_*_edges_compute``, the statement the JAX package runs in
+    that dtype, forward and backward, F13 in ``ROADMAP.md`` §3) over
+    ``args``, in chunks of whole graphs,
     or of one graph's targets where a graph is too large (``ops.edge_grad.
     edge_chunks``), so that no ``[graphs, targets, sources, width]``
     intermediate exceeds ``budget`` elements. The first ``GRAPH_ARGS`` of
     both are per graph; the rest (weights, an ``rbf`` term) pass whole;
     ``norm`` (``[B, 1, 1, 1]``, the dense reference's per-graph divisor) is
-    per graph too. Returns (m_sum [B,N,Fm], x_out [B,N,3]) float32, as
-    the reference does; written chunk by chunk into fresh tensors, which
-    autograd follows."""
+    per graph too. Returns (m_sum [B,N,Fm], x_out [B,N,3]) as the
+    statement does (m_sum float32 or in the compute dtype, x_out float32);
+    written chunk by chunk into fresh tensors, which autograd follows."""
     global plain_edge_calls
     plain_edge_calls += 1
     b, n = args[0].shape[:2]
@@ -198,12 +208,16 @@ class _GlobalFirstLayer(nn.Module):
     def cast(self, dt: torch.dtype) -> tuple:
         return self.kernel.to(dt), self.bias.to(dt)
 
-    def forward(self, h, h_v, r2, weights):
-        """h ``[B, N, H]``, h_v ``[B, 1, V]``, r2 ``[B, N, 1]``, all in the
-        compute dtype -> ``[B, N, F]``; ``weights`` is ``cast(h.dtype)``."""
-        k, b = weights
+    def pre(self, h, h_v, r2, weights):
+        """The layer before its bias: h ``[B, N, H]``, h_v ``[B, 1, V]``,
+        r2 ``[B, N, 1]``, all in the compute dtype -> ``[B, N, F]``;
+        ``weights`` is ``cast(h.dtype)``."""
+        k = weights[0]
         hv = self.hdim + self.vdim
-        return h @ k[: self.hdim] + h_v @ k[self.hdim : hv] + r2 * k[hv] + b
+        return h @ k[: self.hdim] + h_v @ k[self.hdim : hv] + r2 * k[hv]
+
+    def forward(self, h, h_v, r2, weights):
+        return self.pre(h, h_v, r2, weights) + weights[1]
 
 
 class _KernelDense(nn.Module):
@@ -220,10 +234,44 @@ class _KernelDense(nn.Module):
     def cast(self, dt: torch.dtype) -> tuple:
         return self.kernel.to(dt), self.bias.to(dt)
 
+    def pre(self, v: torch.Tensor, weights) -> torch.Tensor:
+        """``v @ kernel``, the layer before its bias."""
+        return v @ weights[0]
+
     def forward(self, v: torch.Tensor, weights) -> torch.Tensor:
         """``v @ kernel + bias`` with ``weights = cast(v.dtype)``."""
-        k, b = weights
-        return v @ k + b
+        return self.pre(v, weights) + weights[1]
+
+
+def silu_dense(layer, weights, *inputs) -> torch.Tensor:
+    """``silu(layer(*inputs))``, the bias added last: torch's one-op SiLU
+    in float32, else ``ops.activations.bias_silu``, each op rounded to the
+    compute dtype as the JAX package's ``Dense`` and ``nn.silu`` round
+    (F12, ``ROADMAP.md`` §3)."""
+    return add_silu(layer.pre(*inputs, weights), weights[1])
+
+
+def node_mlp(cat: torch.Tensor, h0: tuple, h1: tuple,
+             zeros: tuple | None = None) -> torch.Tensor:
+    """The node MLP, Dense-SiLU-Dense on ``cat [..., H + m_out]`` with the
+    ``nn.Linear`` weights ``(weight [out, in], bias)`` cast to its dtype:
+    ``F.linear`` and torch's one-op SiLU in float32 and wherever autograd
+    records; else (a bf16 model's sampling and serving) each product, bias
+    add and SiLU op rounded as the JAX package's flax ``Dense`` and
+    ``nn.silu`` round (F12), the first bias and SiLU one ``bias_silu``
+    launch. Training keeps torch's form: with JAX's rounding the flagship's
+    bf16 train step leaves its per-leaf parity gate against JAX's step on
+    two bias leaves (``ROADMAP.md`` §3 F12). Each product is ``F.linear``
+    with a zero bias (``zeros``, one per layer, made here where not given):
+    cuBLAS's bias-epilogue GEMM, the kernel ``F.linear`` takes with a bias,
+    where a bare product may take split-K and a reduction, one launch more;
+    adding 0 to the float32 sum leaves the product's one rounding as it
+    was."""
+    if cat.dtype == torch.float32 or wants_grad((cat, *h0, *h1)):
+        return F.linear(F.silu(F.linear(cat, *h0)), *h1)
+    (w0, b0), (w1, b1) = h0, h1
+    z0, z1 = zeros or (torch.zeros_like(b0), torch.zeros_like(b1))
+    return F.linear(bias_silu(F.linear(cat, w0, z0), b0), w1, z1) + b1
 
 
 class _RbfKernel(nn.Module):
@@ -336,7 +384,7 @@ class EGCL(nn.Module):
         raises."""
         params = tuple(self.parameters())
         if torch.is_grad_enabled() and any(p.requires_grad for p in params):
-            return self._cast_weights(dt)
+            return self._cast_weights(dt, kept=False)
         if torch.compiler.is_exporting():
             if self._cast is None or self._cast_key[0] != dt:
                 raise RuntimeError(
@@ -349,7 +397,9 @@ class EGCL(nn.Module):
             self._cast, self._cast_key = self._cast_weights(dt), key
         return self._cast
 
-    def _cast_weights(self, dt: torch.dtype) -> dict:
+    def _cast_weights(self, dt: torch.dtype, kept: bool = True) -> dict:
+        """The weights in ``dt``; a kept cast in a dtype other than float32
+        also holds the node MLP's zero biases (``node_mlp``)."""
         f32 = torch.float32
         m1, x1 = self.mlp_m_dense1, self.mlp_x_dense1
         att, x2 = self.attention_dense, self.mlp_x_dense2
@@ -362,6 +412,9 @@ class EGCL(nn.Module):
                        x2.kernel.to(f32), x2.bias.to(f32).unsqueeze(0)),
              "h0": (h0.weight.to(dt), h0.bias.to(dt)),
              "h1": (h1.weight.to(dt), h1.bias.to(dt))}
+        if kept and dt != f32:
+            w["h_zeros"] = (torch.zeros_like(h0.bias, dtype=dt),
+                            torch.zeros_like(h1.bias, dtype=dt))
         if self.virtual_node:
             w.update({name: getattr(self, name).cast(dt) for name in (
                 "vnode_in", "vnode_pool", "vnode_out", "vnode_x",
@@ -396,8 +449,9 @@ class EGCL(nn.Module):
             if self.compat_scalar_norm:
                 norm = egcl_pair.compat_norm(x_f, node_mask)
             reference, edge_fn, sources = (
-                egcl_pair.egcl_pair_edges_reference, self.edge_fn,
-                h.shape[1])
+                egcl_pair.egcl_pair_edges_reference
+                if dt == f32 else egcl_pair.egcl_pair_edges_compute,
+                self.edge_fn, h.shape[1])
         else:
             if self.compat_scalar_norm:
                 raise NotImplementedError(
@@ -408,8 +462,9 @@ class EGCL(nn.Module):
             route = edge_route(m_hidden, x_hidden, m_out, dt, h.shape[-1],
                                self.edge_rbf)
             reference, edge_fn, sources = (
-                egcl_knn.egcl_knn_edges_reference, self.knn_edge_fn,
-                idx.shape[-1])
+                egcl_knn.egcl_knn_edges_reference
+                if dt == f32 else egcl_knn.egcl_knn_edges_compute,
+                self.knn_edge_fn, idx.shape[-1])
         if self.edge_rbf:
             args = args + (w["rbf"],)
         if route == "plain":
@@ -423,7 +478,7 @@ class EGCL(nn.Module):
             m_sum = m_sum + vn_msg.to(m_sum.dtype)
             x_new = x_new + x_vn
         cat = torch.cat([h_c, m_sum.to(dt)], dim=-1)
-        h_new = F.linear(F.silu(F.linear(cat, *w["h0"])), *w["h1"])
+        h_new = node_mlp(cat, w["h0"], w["h1"], w.get("h_zeros"))
         if self.h_residual and h_new.shape[-1] == h_c.shape[-1]:
             h_new = h_new + h_c
         return h_new.to(h.dtype), x_new.to(x.dtype)
@@ -440,13 +495,13 @@ class EGCL(nn.Module):
         diff = (x_f - masked_mean(x_f, node_mask)) * m3          # [B,N,3]
         r2_f = (diff * diff).sum(dim=-1, keepdim=True)           # [B,N,1]
         r2 = r2_f.to(dt)
-        u = F.silu(self.vnode_in(torch.cat([h_m, r2], dim=-1),
-                                 w["vnode_in"])) * m3_c
-        h_v = F.silu(self.vnode_pool(masked_mean(u, node_mask),
-                                     w["vnode_pool"]))           # [B,1,V]
+        u = silu_dense(self.vnode_in, w["vnode_in"],
+                       torch.cat([h_m, r2], dim=-1)) * m3_c
+        h_v = silu_dense(self.vnode_pool, w["vnode_pool"],
+                         masked_mean(u, node_mask))              # [B,1,V]
         vn_msg = self.vnode_out(h_m, h_v, r2, w["vnode_out"]) * m3_c
-        s_v = self.vnode_x_head(F.silu(self.vnode_x(h_m, h_v, r2,
-                                                    w["vnode_x"])),
+        s_v = self.vnode_x_head(silu_dense(self.vnode_x, w["vnode_x"], h_m,
+                                           h_v, r2),
                                 w["vnode_x_head"])
         norm = torch.sqrt(torch.where(m3 > 0, r2_f.clamp_min(1e-12),
                                       torch.ones_like(r2_f)))

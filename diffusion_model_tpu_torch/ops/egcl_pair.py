@@ -57,6 +57,10 @@ import torch
 import torch.nn.functional as F
 
 from diffusion_model_tpu_torch.ops import _tiles
+from diffusion_model_tpu_torch.ops.activations import (  # noqa: F401
+    logistic,
+    silu,
+)
 from diffusion_model_tpu_torch.ops.edge_grad import EdgeFunction, wants_grad
 from diffusion_model_tpu_torch.ops.edges import rbf_features
 
@@ -139,36 +143,6 @@ def egcl_pair_edges_compute(am_i, am_j, ax_i, ax_j, x, mask, w_dm, w_dx,
         pre_m, pre_x = compute_rbf(pre_m, pre_x, d2, pm > 0, *rbf)
     return compute_tail(pre_m, pre_x, pm, diff, d2, x_i, w2m, b2m, wa, ba,
                         w2x, b2x, wx3, bx3, norm)
-
-
-class _Logistic(torch.autograd.Function):
-    """The sigmoid as the JAX package's ``jax.nn.sigmoid`` computes it
-    (``lax.logistic``, lowered as ``1 / (1 + exp(-x))`` with each op
-    rounded to the dtype; its derivative ``g * (s * (1 - s))``). In
-    bfloat16 torch's one-op ``sigmoid`` and ``silu`` round once, which puts
-    the statement's outputs as far from JAX's as the float32 statement's
-    (``tests/test_torch_compute_statement.py``)."""
-
-    @staticmethod
-    def forward(ctx, x):
-        s = torch.reciprocal(1 + torch.exp(-x))
-        ctx.save_for_backward(s)
-        return s
-
-    @staticmethod
-    def backward(ctx, g):
-        (s,) = ctx.saved_tensors
-        return g * (s * (1 - s))
-
-
-def logistic(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.sigmoid`` in ``x``'s dtype (``_Logistic``)."""
-    return _Logistic.apply(x)
-
-
-def silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu`` in ``x``'s dtype: ``x * sigmoid(x)``, two roundings."""
-    return x * logistic(x)
 
 
 def compute_rbf(pre_m, pre_x, d2, valid, w_rbf_m, w_rbf_x, rmax):

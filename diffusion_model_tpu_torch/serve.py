@@ -18,8 +18,11 @@ is one zip file of format ``FORMAT`` holding
     schedule's baked in, as the JAX export bakes it) are the programs'
     constants. Each EGCL's edge work is one node of the custom op
     ``diffusion_model_tpu_torch::egcl_pair`` (K1) or ``::egcl_knn`` (K2),
+    and in a model whose compute dtype is not float32 each bias-SiLU of
+    the node side one node of ``::bias_silu`` (``ops/activations.py``),
     which the op modules register: the kernel on the card, its plain
-    statement on the CPU;
+    statement on the CPU. An artifact exported before that op existed
+    holds no such node and runs as it did;
   * ``artifact.json``: the format, the grid length ``steps`` and the shapes
     of the draws each piece takes, in the order ``diffusion/sampler.py``
     states (the start's, then one step's, which the epilogue takes too).
@@ -31,7 +34,7 @@ drives the loop: the start, ``steps`` steps from index ``steps`` down to
 1, the epilogue, as the JAX artifact's scan does inside StableHLO; nothing
 is unrolled. The programs are traced on the export's device, stored on the
 CPU, and moved to the serving device at load (``move_to_device_pass``).
-Loading imports torch, numpy, this package's ``__init__`` and the two op
+Loading imports torch, numpy, this package's ``__init__`` and the three op
 modules (with ``ops._build``, ``_tiles``, ``edge_grad``, ``edges``,
 ``angles`` and ``schedules``); ``export_sampler`` imports the rest. A file
 of format 1 (a ``torch.save`` dict of parameters, which the model code
@@ -73,7 +76,11 @@ import torch
 from torch.export.passes import move_to_device_pass
 
 # registers the custom ops the programs call
-from diffusion_model_tpu_torch.ops import egcl_knn, egcl_pair  # noqa: F401
+from diffusion_model_tpu_torch.ops import (  # noqa: F401
+    activations,
+    egcl_knn,
+    egcl_pair,
+)
 
 FORMAT = "diffusion_model_tpu_torch.serve/2"
 FORMAT_1 = "diffusion_model_tpu_torch.serve/1"

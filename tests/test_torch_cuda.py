@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from diffusion_model_tpu_torch.nn import egnn
-from diffusion_model_tpu_torch.ops import egcl_knn, egcl_pair
+from diffusion_model_tpu_torch.ops import activations, egcl_knn, egcl_pair
 from diffusion_model_tpu_torch.ops.edges import knn_edges
 from diffusion_model_tpu_torch.probes import (
     kernel_stages,
@@ -81,6 +81,43 @@ def _scatter_mask(inputs, seed):
         inputs["mask"][g] = inputs["mask"][g][rng.permutation(
             inputs["mask"].shape[1])]
     return inputs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(80 * 16, 1024),       # flagship node MLP
+                                   (4, 192, 1024),        # the arm's node MLP
+                                   (4, 1, 256),           # its vnode pooling
+                                   (3, 37, 1001)])        # odd: one element
+def test_bias_silu_is_its_statement_bit_for_bit(cuda_device, shape):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    v = (3 * torch.randn(shape, generator=g, device=cuda_device)).to(
+        torch.bfloat16)
+    v.view(-1, shape[-1])[0] = torch.linspace(-120, 120, shape[-1],
+                                              device=cuda_device)
+    b = torch.randn(shape[-1], generator=g, device=cuda_device).to(
+        torch.bfloat16)
+    before = activations.bias_silu_launches
+    with torch.no_grad():
+        got = activations.bias_silu(v, b)
+    want = activations.bias_silu_reference(v, b)
+    torch.cuda.synchronize()
+    assert activations.bias_silu_launches == before + 1
+    assert got.shape == v.shape and got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_bias_silu_raises_on_what_the_kernel_does_not_take(cuda_device):
+    v = torch.randn(4, 8, device=cuda_device)
+    with pytest.raises(TypeError, match="bfloat16"):
+        activations.bias_silu_op(v, torch.zeros(8, device=cuda_device))
+    # under autograd the op-by-op statement runs, and no kernel
+    w = v.to(torch.bfloat16).requires_grad_()
+    before = activations.bias_silu_launches
+    activations.bias_silu(w, torch.zeros(8, dtype=torch.bfloat16,
+                                         device=cuda_device)).sum().backward()
+    assert activations.bias_silu_launches == before
+    assert w.grad is not None
 
 
 @pytest.mark.cuda

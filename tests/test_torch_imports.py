@@ -34,7 +34,8 @@ def test_every_module_is_listed():
                      "nn.denoiser", "nn.egnn", "nn.gamma", "ops.angles",
                      "ops.com", "ops.kabsch", "utils.logging",
                      "ops.edge_grad", "ops.edges", "ops.egcl_knn",
-                     "ops.egcl_pair", "ops.rdf", "ops.schedules",
+                     "ops.egcl_pair", "ops.activations", "ops.rdf",
+                     "ops.schedules",
                      "ops._build", "probes._common",
                      "probes.kernel_stages", "probes.matmul_rate",
                      "probes.overlap", "probes.pipeline",
@@ -114,7 +115,7 @@ def test_the_full_width_replayer_and_its_start_import_no_jax():
 
 
 def test_serving_loads_no_model_code():
-    """``serve`` and the two op modules, all a serving process imports,
+    """``serve`` and the three op modules, all a serving process imports,
     load none of the model modules, the JAX package or JAX."""
     model = tuple(f"diffusion_model_tpu_torch.{m}" for m in (
         "api", "config", "data", "diffusion", "nn", "train", "evals", "cli",
@@ -124,6 +125,7 @@ def test_serving_loads_no_model_code():
         "import diffusion_model_tpu_torch.serve",
         "import diffusion_model_tpu_torch.ops.egcl_pair",
         "import diffusion_model_tpu_torch.ops.egcl_knn",
+        "import diffusion_model_tpu_torch.ops.activations",
         f"refused = {model + BLOCKED!r}",
         "loaded = [m for m in sys.modules if any(",
         "    m == r or m.startswith(r + '.') for r in refused)]",

@@ -13,6 +13,11 @@ initialisations, and the tests read what they wrote:
   ``global_radius_feature``; the zero-init heads re-randomised as
   ``_liven_levers`` does): against the port's dense denoiser and the JAX
   ring at rtol 3e-4 / atol 3e-5;
+* the forward in bfloat16 with ``h_residual`` and the virtual node (F12 in
+  ``ROADMAP.md`` §3):
+  each output's relative L2 distance from the JAX ring's bfloat16 output
+  within ``OUT_RATIO`` of JAX's own bfloat16-to-float32 distance
+  (``tests/test_torch_node_statement.py``'s measure);
 * the parameter gradients of a fixed contraction of the outputs, summed
   over the ring: against the port's dense gradients at rtol 1e-2 and JAX's
   atol (1e-4, the lever stack 5e-4), and against JAX's ring gradients at
@@ -54,6 +59,7 @@ from diffusion_model_tpu_torch.parallel import ring
 from diffusion_model_tpu_torch.train.checkpoint import state_dict_from_flax
 from diffusion_model_tpu_torch.train.loss import TrainNoise
 from diffusion_model_tpu_torch.train.trainer import Trainer
+from test_torch_compute_statement import OUT_RATIO
 from torch_parallel_cases import FIELDS, _model, as_batch, ring_cases
 
 torch.set_num_threads(2)
@@ -137,6 +143,15 @@ def cases():
         spec["forwards"].append((name, cfg, tree, args))
         fn = jax_ring_fn(jcfg, jax.tree.map(jnp.asarray, tree), mesh)
         want[f"forward_{name}"] = [np.asarray(v) for v in jax.jit(fn)(*args)]
+    kw = dict(zero_init_x=False, h_residual=True, virtual_node=True,
+              compute_dtype="bfloat16")
+    cfg, jcfg, tree, args, _ = denoiser_inputs(kw, 11, 0.4)
+    spec["bf16"] = (cfg, tree, args)
+    params = jax.tree.map(jnp.asarray, tree)
+    for dt in ("bfloat16", "float32"):
+        fn = jax_ring_fn(jcfg.replace(compute_dtype=dt), params, mesh)
+        want[f"forward_bf16_jax_{dt}"] = [
+            np.asarray(v, np.float32) for v in jax.jit(fn)(*args)]
     for name, (kw, seed, _) in GRADS.items():
         cfg, jcfg, tree, args, rng = denoiser_inputs(kw, seed, 0.3)
         tx = rng.normal(size=(32, 3)).astype(np.float32)
@@ -230,6 +245,21 @@ def test_forward_matches_dense_and_the_jax_ring(world, cases, name):
                                    atol=3e-5, err_msg=key)
         np.testing.assert_allclose(got[key], jax_ring, rtol=3e-4, atol=3e-5,
                                    err_msg=key)
+
+
+def test_bf16_forward_matches_the_jax_ring_in_bf16(world, cases):
+    """The bf16 ring against the JAX ring in bf16, over JAX's own
+    bf16-to-f32 distance."""
+    _, out = world
+    _, want = cases
+    j16, j32 = (want[f"forward_bf16_jax_{dt}"]
+                for dt in ("bfloat16", "float32"))
+    got = load(out, "forward_bf16")
+    for i, key in enumerate(("eps_x", "eps_h")):
+        gap = np.linalg.norm(j16[i] - j32[i])
+        assert gap > 0, key
+        ratio = np.linalg.norm(got[key] - j16[i]) / gap
+        assert ratio <= OUT_RATIO, (key, ratio)
 
 
 @pytest.mark.parametrize("name", sorted(GRADS))

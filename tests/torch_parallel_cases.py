@@ -168,6 +168,16 @@ def _ring_cases(rank: int, out_dir: str, spec: dict) -> None:
             _save(out_dir, f"forward_{name}", eps_x=ex.numpy(),
                   eps_h=eh.numpy())
 
+    # the bf16 forward (F12)
+    cfg, tree, args = spec["bf16"]
+    model = _model(cfg, tree).requires_grad_(False)
+    with torch.no_grad():
+        ex, eh = ring.ring_denoise_fn(cfg, model, mesh)(
+            *(torch.from_numpy(a) for a in args))
+    if rank == 0:
+        _save(out_dir, "forward_bf16", eps_x=ex.float().numpy(),
+              eps_h=eh.float().numpy())
+
     # parameter gradients of a fixed contraction of the outputs
     for name, cfg, tree, args, (tx, th) in spec["grads"]:
         model = _model(cfg, tree)
