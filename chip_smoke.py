@@ -21,10 +21,14 @@ Phases, each printed as one JSON line:
      bias add and SiLU rounded op by op as the JAX package rounds them, F12
      in ``ROADMAP.md`` §3) against its op-by-op statement, bit for bit, at
      the node side's shapes (``FUSED_SHAPES``), timed beside the statement
-     and torch's one-op ``F.silu`` (which rounds once); phase 4 counts its
+     and torch's one-op ``F.silu`` (which rounds once), by CUDA events and
+     by the card's own kernel time; under autograd one launch, the output
+     and both gradients bit for bit the statement's; phase 4 counts its
      launches (one a layer a denoiser call in bf16), phase 27 its node in
-     each served program's call, and ``flagship_routes`` holds a denoiser
-     call to at most ``PARENT_CALL_LAUNCHES`` + L runtime launches;
+     each served program's call, phase 32 its launches in bf16 training
+     (the virtual-node channel's three a layer a step), and
+     ``flagship_routes`` holds a denoiser call to at most
+     ``PARENT_CALL_LAUNCHES`` + L runtime launches;
   3. the flagship denoiser on the card against the JAX goldens of
      ``tests/fixtures/torch_port/flagship.npz``;
   0b. data: the port's ``data.synthetic`` + ``data.split`` rebuild the
@@ -244,7 +248,8 @@ Phases, each printed as one JSON line:
      recipe at 12.5 M parameters on 160-192-atom network cells, kNN-32,
      batch 4, from the numpy start on the recorded batches and draws) in
      float32 and bfloat16 through K2 (the bfloat16 backward through the
-     compute-dtype statement since F11's repair), held to JAX's tracks
+     compute-dtype statement since F11's repair; ``bias_silu`` three
+     times a layer a bf16 step), held to JAX's tracks
      (``tests/fixtures/torch_port/train_replay_full_hres_vn.*``): at step
      1 the one-step tolerances (loss rtol 1e-5, gradient norm 5e-3 in
      float32, 5e-2 in bfloat16), at step 10 F9's rule (``verdict``: the
@@ -446,6 +451,28 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def device_ms(fn, reps: int) -> dict:
+    """The card's own milliseconds a call of ``fn()`` over ``reps`` calls
+    under ``torch.profiler`` (one untimed call first): the sum of its
+    kernels' device spans a call, whatever paces the host, and the
+    kernels a call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == cuda
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    return {"device_ms": 1e-3 * sum(spans) / reps,
+            "kernels_a_call": len(spans) / reps}
 
 
 def rel_l2(a, b) -> float:
@@ -718,7 +745,11 @@ def phase_bias_silu(device) -> dict:
     normal draw, and a row swept over [-120, 120] where exp overflows);
     timed at the first shape beside the statement, torch's one-op
     ``F.silu`` of the sum (which rounds once: not the port's rounding) and
-    the form before F12, ``F.silu(v + b)``; the bound is bytes."""
+    the form before F12, ``F.silu(v + b)``, each by CUDA events over calls
+    back to back (host-paced: the op's dispatch) and by the card's own
+    kernel time (``device_ms``); the bound is bytes. Under autograd, at
+    the arm's node shape: one launch for the forward, and the output and
+    both gradients bit for bit the statement's."""
     import torch
     import torch.nn.functional as F
 
@@ -746,6 +777,11 @@ def phase_bias_silu(device) -> dict:
                                      f"for bit: {checks[-1]}")
             if not timing:
                 t = v + b
+                dev = {name: device_ms(fn, 50) for name, fn in (
+                    ("kernel", lambda: activations.bias_silu_op(v, b)),
+                    ("statement",
+                     lambda: activations.bias_silu_reference(v, b)),
+                    ("f_silu", lambda: F.silu(t)))}
                 timing = {
                     "shape": [rows, f],
                     "ms": cuda_ms(lambda: activations.bias_silu_op(v, b),
@@ -757,15 +793,38 @@ def phase_bias_silu(device) -> dict:
                                     "one op that rounds once, not JAX's "
                                     "rounding",
                     "f_silu_of_sum_ms": cuda_ms(lambda: F.silu(v + b), 50),
+                    "device_ms": dev["kernel"]["device_ms"],
+                    "plain_device_ms": dev["statement"]["device_ms"],
+                    "library_device_ms": dev["f_silu"]["device_ms"],
+                    "device": dev,
                     **bound(nbytes(v, b, got))}
+    rows, f = FUSED_SHAPES[1]
+    v, b, cot = ((3 * torch.randn(n, generator=g, device=device)).to(
+        torch.bfloat16) for n in ((rows, f), (f,), (rows, f)))
+    outs = []
+    for fn in (activations.bias_silu, activations.bias_silu_reference):
+        vv, bb = v.clone().requires_grad_(), b.clone().requires_grad_()
+        before = activations.bias_silu_launches
+        y = fn(vv, bb)
+        outs.append((y, *torch.autograd.grad(y, (vv, bb), cot),
+                     activations.bias_silu_launches - before))
+    torch.cuda.synchronize()
+    grad = {"shape": [rows, f], "launches": [o[-1] for o in outs],
+            "bits_differing": [int((a.view(torch.int16)
+                                    != w.view(torch.int16)).sum())
+                               for a, w in zip(outs[0][:3], outs[1][:3])]}
+    if grad["launches"] != [1, 0] or any(grad["bits_differing"]):
+        raise AssertionError(f"bias_silu under autograd: {grad} (want one "
+                             f"launch, y, dv and db bit for bit)")
     rec = {"phase": "bias_silu_vs_statement", "checks": checks, **timing,
-           "tolerance": "bit for bit"}
+           "under_autograd": grad, "tolerance": "bit for bit"}
     log(rec)
     return {"max_abs_err": max(c["max_abs_err"] for c in checks),
             **{k: timing[k] for k in ("ms", "plain_ms", "library_ms",
                                       "library_call", "f_silu_of_sum_ms",
-                                      "bound_ms", "bound_by", "bound_kind",
-                                      "shape")}}
+                                      "device_ms", "plain_device_ms",
+                                      "library_device_ms", "bound_ms",
+                                      "bound_by", "bound_kind", "shape")}}
 
 
 def phase_knn_kernel(cfg, params, fx, device) -> dict:
@@ -4300,7 +4359,7 @@ def phase_f9_replay(device, card: str) -> dict:
     F9's full-width replay, against the JAX package's record."""
     import torch
 
-    from diffusion_model_tpu_torch.ops import egcl_knn
+    from diffusion_model_tpu_torch.ops import activations, egcl_knn
 
     sys.path.insert(0, str(ROOT / "tests"))
     import torch_replay_training_full as full
@@ -4313,10 +4372,11 @@ def phase_f9_replay(device, card: str) -> dict:
                          device=device)
     full.check_inputs(meta, npz, sketch)
     setup_s = time.perf_counter() - t0
-    egcl_knn.egcl_knn_launches = 0
+    egcl_knn.egcl_knn_launches = activations.bias_silu_launches = 0
     port = {t: full.replay_track(meta, npz, t, F9_STEPS, device, sketch)
             for t in full.TRACKS}
     launches = egcl_knn.egcl_knn_launches
+    fused = activations.bias_silu_launches
     verdict = full.verdict(meta, port, F9_STEPS)
     first = {}
     for t, grad_rtol in (("float32", full.GRAD_RTOL),
@@ -4339,7 +4399,7 @@ def phase_f9_replay(device, card: str) -> dict:
            "jax_bf16_f32_gap_at_10": next(
                r["exact"]["tree"] for r in meta["jax_gap"]
                if r["step"] == F9_STEPS),
-           "egcl_knn_launches": launches,
+           "egcl_knn_launches": launches, "bias_silu_launches": fused,
            "ms_a_step": {t: 1e3 * port[t]["seconds"] / F9_STEPS
                          for t in full.TRACKS},
            "setup_s": setup_s, "peak_gb": torch.cuda.max_memory_allocated(
@@ -4351,6 +4411,11 @@ def phase_f9_replay(device, card: str) -> dict:
     if launches != want_launches:
         raise AssertionError(f"f9_replay launched K2 {launches} times, "
                              f"not {want_launches}")
+    # bias_silu: the bf16 track's virtual-node channel, three a layer a
+    # step (the node MLP keeps torch's form under autograd, F12)
+    if fused != F9_STEPS * meta["L"] * 3:
+        raise AssertionError(f"f9_replay launched bias_silu {fused} times, "
+                             f"not {F9_STEPS * meta['L'] * 3}")
     if not all(f["grad_norm_within"] for f in first.values()) \
             or not first["float32"]["loss_within"]:
         raise AssertionError(f"f9_replay: step 1 off JAX's: {first}")
@@ -4963,7 +5028,7 @@ def main() -> int:
     distilled = kernels_only("distill", phase_distill, graphs, device, card)
     latent = kernels_only("spectrum_latent", phase_spectrum_latent, device,
                           card)
-    kernels_only("f9_replay", phase_f9_replay, device, card)
+    f9 = kernels_only("f9_replay", phase_f9_replay, device, card)
     from diffusion_model_tpu_torch import parallel
 
     parallel.init_single("nccl")
@@ -5023,7 +5088,8 @@ def main() -> int:
          "replaces": "none (no Pallas kernel): flax Dense bias + nn.silu, "
                      "diffusion_model_tpu/nn/egnn.py:388, fused by XLA",
          "launches": served_counts["bias_silu"], **fused,
-         "knn_served_launches": knn_counts["bias_silu"]},
+         "knn_served_launches": knn_counts["bias_silu"],
+         "f9_train_launches": f9["bias_silu_launches"]},
         *probes,
     ]})
     print(card_line(), flush=True)

@@ -54,10 +54,10 @@ and the ``[in, out]`` kernels the edge kernels and the virtual-node channel
 read; only the node MLP uses ``nn.Linear``. Geometry stays float32; the MLP
 matmuls run in the compute dtype. Where that dtype is not float32, the
 virtual-node channel, and the node MLP where autograd does not record, add
-each bias after its product and take their SiLUs op by op (``silu_dense``,
-``node_mlp``: ``ops.activations``, the kernel ``bias_silu`` where autograd
-does not record), as the JAX package's flax modules round them; a float32
-model keeps ``F.linear`` and torch's one-op SiLU.
+each bias after its product and take their SiLUs op by op, each bias add
+and SiLU one launch of the kernel ``bias_silu`` (``silu_dense``,
+``ops.activations.node_mlp``), as the JAX package's flax modules round
+them; a float32 model keeps ``F.linear`` and torch's one-op SiLU.
 """
 
 from __future__ import annotations
@@ -66,18 +66,16 @@ import math
 from typing import Callable
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from diffusion_model_tpu_torch.ops import egcl_knn, egcl_pair
-from diffusion_model_tpu_torch.ops.activations import add_silu, bias_silu
+from diffusion_model_tpu_torch.ops.activations import add_silu, node_mlp
 from diffusion_model_tpu_torch.ops.com import masked_mean
 from diffusion_model_tpu_torch.ops.edge_grad import (
     GRAPH_ARGS,
     PLAIN_EDGE_ELEMENTS,
     edge_chunks,
-    wants_grad,
 )
 from diffusion_model_tpu_torch.ops.edges import rbf_features  # noqa: F401
 from diffusion_model_tpu_torch.ops.egcl_knn import egcl_knn_edges
@@ -249,29 +247,6 @@ def silu_dense(layer, weights, *inputs) -> torch.Tensor:
     compute dtype as the JAX package's ``Dense`` and ``nn.silu`` round
     (F12, ``ROADMAP.md`` §3)."""
     return add_silu(layer.pre(*inputs, weights), weights[1])
-
-
-def node_mlp(cat: torch.Tensor, h0: tuple, h1: tuple,
-             zeros: tuple | None = None) -> torch.Tensor:
-    """The node MLP, Dense-SiLU-Dense on ``cat [..., H + m_out]`` with the
-    ``nn.Linear`` weights ``(weight [out, in], bias)`` cast to its dtype:
-    ``F.linear`` and torch's one-op SiLU in float32 and wherever autograd
-    records; else (a bf16 model's sampling and serving) each product, bias
-    add and SiLU op rounded as the JAX package's flax ``Dense`` and
-    ``nn.silu`` round (F12), the first bias and SiLU one ``bias_silu``
-    launch. Training keeps torch's form: with JAX's rounding the flagship's
-    bf16 train step leaves its per-leaf parity gate against JAX's step on
-    two bias leaves (``ROADMAP.md`` §3 F12). Each product is ``F.linear``
-    with a zero bias (``zeros``, one per layer, made here where not given):
-    cuBLAS's bias-epilogue GEMM, the kernel ``F.linear`` takes with a bias,
-    where a bare product may take split-K and a reduction, one launch more;
-    adding 0 to the float32 sum leaves the product's one rounding as it
-    was."""
-    if cat.dtype == torch.float32 or wants_grad((cat, *h0, *h1)):
-        return F.linear(F.silu(F.linear(cat, *h0)), *h1)
-    (w0, b0), (w1, b1) = h0, h1
-    z0, z1 = zeros or (torch.zeros_like(b0), torch.zeros_like(b1))
-    return F.linear(bias_silu(F.linear(cat, w0, z0), b0), w1, z1) + b1
 
 
 class _RbfKernel(nn.Module):

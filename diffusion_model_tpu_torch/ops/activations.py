@@ -1,5 +1,5 @@
-"""Activations rounded as the JAX package rounds them, and the fused
-bias-SiLU kernel.
+"""Activations rounded as the JAX package rounds them, the node MLP, and
+the fused bias-SiLU kernel.
 
 The JAX package computes every sigmoid as ``jax.nn.sigmoid`` (``lax.
 logistic``, lowered as ``1 / (1 + exp(-x))``) and every SiLU as ``x *
@@ -10,9 +10,9 @@ in bfloat16 they put the port as far from JAX's bf16 numbers as its float32
 statement is (``tests/test_torch_compute_statement.py``,
 ``tests/test_torch_node_statement.py``). ``logistic``, ``silu`` and
 ``bias_silu`` are JAX's forms; the port uses them wherever its compute
-dtype is not float32 (``add_silu`` picks the form by dtype; a float32
-model keeps torch's one-op forms), but in the node MLP under autograd
-(``nn.egnn.node_mlp``, F12 in ``ROADMAP.md`` §3).
+dtype is not float32 (``silu_for``, ``sigmoid_for`` and ``add_silu`` pick
+the form by dtype; a float32 model keeps torch's one-op forms), but in the
+node MLP under autograd (``node_mlp``, F12 in ``ROADMAP.md`` §3).
 
 ``bias_silu(v, b)`` is ``silu(v + b)``: for each element ``t = r(v + b)``,
 ``e = r(exp(-t))``, ``d = r(1 + e)``, ``s = r(1 / d)``, ``y = r(t * s)``,
@@ -20,22 +20,27 @@ model keeps torch's one-op forms), but in the node MLP under autograd
 elementwise ops compute it. It adds no kernel of the JAX package's: XLA
 fuses those five ops into one pass on the TPU; the port's op-by-op form is
 five launches and a bias add where ``F.linear`` + ``F.silu`` were one
-launch between them. So where autograd does not record, ``bias_silu`` calls
-the custom op ``torch.ops.diffusion_model_tpu_torch.bias_silu``
-(``bias_silu_op``): on CUDA tensors it launches the hand-written kernel
-(``csrc/bias_silu.cu``, bit for bit the op-by-op statement) or raises, on
-CPU tensors it runs ``bias_silu_reference``, and its fake implementation
-lets ``torch.export`` record one opaque node (``serve.py``). Where autograd
-records, ``bias_silu_reference`` runs op by op and autograd of it is the
-backward (``logistic``'s derivative is JAX's ``g * (s * (1 - s))``).
+launch between them. So ``bias_silu`` is the custom op
+``torch.ops.diffusion_model_tpu_torch.bias_silu`` (``bias_silu_op``): on
+CUDA tensors it launches the hand-written kernel (``csrc/bias_silu.cu``,
+bit for bit the op-by-op statement) or raises, on CPU tensors it runs
+``bias_silu_reference``, and its fake implementation lets ``torch.export``
+record one opaque node (``serve.py``). Its backward recomputes
+``bias_silu_reference`` from the saved ``v`` and ``b`` and takes autograd
+of it (``logistic``'s derivative is JAX's ``g * (s * (1 - s))``): the
+gradient of the op-by-op statement, bit for bit, since the forward is.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Callable
 
 import torch
+import torch.nn.functional as F
+
+from diffusion_model_tpu_torch.ops.edge_grad import wants_grad
 
 # Launches of the CUDA kernel in this process; only ``_launch`` adds to it,
 # right after a launch was accepted.
@@ -83,21 +88,53 @@ def bias_silu_reference(v: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def bias_silu(v: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``silu(v + b)`` with each op rounded to ``v``'s dtype, as a flax
     ``Dense`` and ``nn.silu`` compute it. ``v`` ``[..., F]`` (a product's
-    output), ``b`` ``[F]``, one dtype. Where autograd records, the op-by-op
-    statement (autograd of it is the backward); else the custom op: the
-    CUDA kernel on a CUDA tensor (bfloat16, or it raises), the statement on
-    a CPU tensor."""
-    if torch.is_grad_enabled() and (v.requires_grad or b.requires_grad):
-        return bias_silu_reference(v, b)
+    output), ``b`` ``[F]``, one dtype. The custom op: the CUDA kernel on a
+    CUDA tensor (bfloat16, or it raises), the statement on a CPU tensor;
+    its backward is the statement's."""
     return bias_silu_op(v.contiguous(), b.contiguous())
+
+
+def silu_for(dtype: torch.dtype) -> Callable:
+    """The SiLU the port takes in ``dtype``: torch's one-op ``F.silu`` in
+    float32, else ``silu`` (JAX's rounding)."""
+    return F.silu if dtype == torch.float32 else silu
+
+
+def sigmoid_for(dtype: torch.dtype) -> Callable:
+    """The sigmoid the port takes in ``dtype``: torch's one-op
+    ``torch.sigmoid`` in float32, else ``logistic`` (JAX's rounding)."""
+    return torch.sigmoid if dtype == torch.float32 else logistic
 
 
 def add_silu(v: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``silu(v + b)`` as the port computes it in ``v``'s dtype: torch's
     one-op ``F.silu`` in float32, else ``bias_silu`` (JAX's rounding)."""
     if v.dtype == torch.float32:
-        return torch.nn.functional.silu(v + b)
+        return F.silu(v + b)
     return bias_silu(v, b)
+
+
+def node_mlp(cat: torch.Tensor, h0: tuple, h1: tuple,
+             zeros: tuple | None = None) -> torch.Tensor:
+    """The EGCL's node MLP, Dense-SiLU-Dense on ``cat [..., H + m_out]``
+    with the ``nn.Linear`` weights ``(weight [out, in], bias)`` cast to its
+    dtype: ``F.linear`` and torch's one-op SiLU in float32 and wherever
+    autograd records; else (a bf16 model's sampling and serving) each
+    product, bias add and SiLU op rounded as the JAX package's flax
+    ``Dense`` and ``nn.silu`` round (F12), the first bias and SiLU one
+    ``bias_silu`` launch. Training keeps torch's form: with JAX's rounding
+    the flagship's bf16 train step leaves its per-leaf parity gate against
+    JAX's step (``ROADMAP.md`` §3 F12). Each product is ``F.linear`` with a
+    zero bias (``zeros``, one per layer, made here where not given):
+    cuBLAS's bias-epilogue GEMM, the kernel ``F.linear`` takes with a bias,
+    where a bare product may take split-K and a reduction, one launch more;
+    adding 0 to the float32 sum leaves the product's one rounding as it
+    was."""
+    if cat.dtype == torch.float32 or wants_grad((cat, *h0, *h1)):
+        return F.linear(F.silu(F.linear(cat, *h0)), *h1)
+    (w0, b0), (w1, b1) = h0, h1
+    z0, z1 = zeros or (torch.zeros_like(b0), torch.zeros_like(b1))
+    return F.linear(bias_silu(F.linear(cat, w0, z0), b0), w1, z1) + b1
 
 
 def _check(v: torch.Tensor, b: torch.Tensor) -> None:
@@ -169,3 +206,19 @@ bias_silu_op.register_kernel("cpu", bias_silu_reference)
 @bias_silu_op.register_fake
 def _(v, b):
     return torch.empty_like(v)
+
+
+def _save_inputs(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _backward(ctx, g):
+    """Autograd of ``bias_silu_reference`` recomputed from the saved
+    inputs: the statement's gradient, bit for bit."""
+    v, b = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+    with torch.enable_grad():
+        y = bias_silu_reference(v, b)
+    return torch.autograd.grad(y, (v, b), g)
+
+
+bias_silu_op.register_autograd(_backward, setup_context=_save_inputs)

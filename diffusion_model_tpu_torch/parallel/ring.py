@@ -44,7 +44,6 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from diffusion_model_tpu_torch.config import Config
-from diffusion_model_tpu_torch.nn.egnn import node_mlp
 from diffusion_model_tpu_torch.ops import activations
 from diffusion_model_tpu_torch.ops.edges import rbf_features
 from diffusion_model_tpu_torch.parallel.mesh import Mesh
@@ -127,21 +126,10 @@ def _linear(p, v, dt):
     return F.linear(v, p.weight.to(dt), p.bias.to(dt))
 
 
-def _silu(v):
-    """torch's one-op SiLU in float32, else JAX's ``v * sigmoid(v)`` op by
-    op (the JAX ring's ``_silu``; F12 in ``ROADMAP.md`` §3)."""
-    return F.silu(v) if v.dtype == torch.float32 else activations.silu(v)
-
-
-def _sigmoid(v):
-    """torch's one-op sigmoid in float32, else ``jax.nn.sigmoid`` op by op."""
-    return (torch.sigmoid(v) if v.dtype == torch.float32
-            else activations.logistic(v))
-
-
 def _dense_silu(p, v, dt):
-    """``_silu(_dense(p, v, dt))``, the bias added last
-    (``ops.activations.add_silu``)."""
+    """The SiLU of ``_dense(p, v, dt)``, the bias added last
+    (``ops.activations.add_silu``: JAX's rounding where ``dt`` is not
+    float32, F12 in ``ROADMAP.md`` §3)."""
     return activations.add_silu(v @ p.kernel.to(dt), p.bias.to(dt))
 
 
@@ -180,7 +168,7 @@ def _vn_ring(lp, h_i, x_i, mask_i, ring: _Ring, dt, hdim):
                 + r2 * k[hdim + vdim] + p.bias.to(dt))
 
     vn_msg = global_first(lp.vnode_out) * m3_f.to(dt)
-    s_v = ((_silu(global_first(lp.vnode_x))
+    s_v = ((activations.silu_for(dt)(global_first(lp.vnode_x))
             * lp.vnode_x_head.kernel[:, 0].to(dt)).sum(dim=-1, keepdim=True)
            + lp.vnode_x_head.bias.to(dt))
     norm = torch.sqrt(torch.where(m3_f > 0, r2_f.clamp_min(1e-12),
@@ -209,6 +197,7 @@ def _egcl_ring(lp, h_i, x_i, mask_i, idx_i, ring: _Ring, dt, hdim,
     x2_k = lp.mlp_x_dense2.kernel[:, 0].to(dt)
     x2_b = lp.mlp_x_dense2.bias.to(dt)
 
+    silu, sigmoid = activations.silu_for(dt), activations.sigmoid_for(dt)
     h_c = h_i.to(dt)
     # target-side projections (the bias folded in) and the source-side
     # ones of the resident block, which rotate
@@ -239,11 +228,11 @@ def _egcl_ring(lp, h_i, x_i, mask_i, idx_i, ring: _Ring, dt, hdim,
             feats = rbf_features(d2, pm_b, *rbf).to(dt)
             pre_m = pre_m + feats @ rbf_m_k
             pre_x = pre_x + feats @ rbf_x_k
-        m = _dense_silu(lp.mlp_m_dense1, _silu(pre_m), dt)
-        att = _sigmoid((m * att_k).sum(dim=-1, keepdim=True) + att_b)
+        m = _dense_silu(lp.mlp_m_dense1, silu(pre_m), dt)
+        att = sigmoid((m * att_k).sum(dim=-1, keepdim=True) + att_b)
         m_sum = m_sum + (m * att * pm).sum(dim=1)
 
-        u = _dense_silu(lp.mlp_x_dense1, _silu(pre_x), dt)
+        u = _dense_silu(lp.mlp_x_dense1, silu(pre_x), dt)
         s = (u * x2_k).sum(dim=-1, keepdim=True) + x2_b
         norm = torch.sqrt(torch.where(pm > 0, d2.clamp_min(1e-12),
                                       torch.ones_like(d2)))
@@ -256,9 +245,9 @@ def _egcl_ring(lp, h_i, x_i, mask_i, idx_i, ring: _Ring, dt, hdim,
     if vn is not None:
         m_sum = m_sum + vn[0].to(m_sum.dtype)
     h0, h1 = lp.mlp_h_dense0, lp.mlp_h_dense1
-    h_new = node_mlp(torch.cat([h_c, m_sum], dim=-1),
-                     (h0.weight.to(dt), h0.bias.to(dt)),
-                     (h1.weight.to(dt), h1.bias.to(dt)))
+    h_new = activations.node_mlp(torch.cat([h_c, m_sum], dim=-1),
+                                 (h0.weight.to(dt), h0.bias.to(dt)),
+                                 (h1.weight.to(dt), h1.bias.to(dt)))
     if h_residual and h_new.shape[-1] == h_c.shape[-1]:
         h_new = h_new + h_c
     x_new = x_i.to(f32) + upd

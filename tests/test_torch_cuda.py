@@ -111,13 +111,32 @@ def test_bias_silu_raises_on_what_the_kernel_does_not_take(cuda_device):
     v = torch.randn(4, 8, device=cuda_device)
     with pytest.raises(TypeError, match="bfloat16"):
         activations.bias_silu_op(v, torch.zeros(8, device=cuda_device))
-    # under autograd the op-by-op statement runs, and no kernel
-    w = v.to(torch.bfloat16).requires_grad_()
-    before = activations.bias_silu_launches
-    activations.bias_silu(w, torch.zeros(8, dtype=torch.bfloat16,
-                                         device=cuda_device)).sum().backward()
-    assert activations.bias_silu_launches == before
-    assert w.grad is not None
+    with pytest.raises(TypeError, match="bfloat16"):
+        activations.bias_silu(v.requires_grad_(),
+                              torch.zeros(8, device=cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 192, 1024), (3, 37, 1001)])
+def test_bias_silu_backward_is_the_statements_bit_for_bit(cuda_device,
+                                                          shape):
+    """Under autograd the kernel runs the forward, once, and the gradients
+    of ``v`` and ``b`` are the op-by-op statement's."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    v, b, cot = ((3 * torch.randn(n, generator=g, device=cuda_device)).to(
+        torch.bfloat16) for n in (shape, shape[-1:], shape))
+    outs = []
+    for fn in (activations.bias_silu, activations.bias_silu_reference):
+        vv, bb = v.clone().requires_grad_(), b.clone().requires_grad_()
+        before = activations.bias_silu_launches
+        y = fn(vv, bb)
+        launched = activations.bias_silu_launches - before
+        outs.append((y, *torch.autograd.grad(y, (vv, bb), cot), launched))
+    torch.cuda.synchronize()
+    assert [o[-1] for o in outs] == [1, 0]
+    for got, want in zip(outs[0][:3], outs[1][:3]):
+        assert got.dtype == torch.bfloat16
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 @pytest.mark.cuda

@@ -5,7 +5,8 @@ widths.
 
 * ``bias_silu``: the op (its CPU implementation) and the op-by-op statement
   are ``silu(v + b)`` bit for bit, forward and, where autograd records,
-  backward; a float32 tensor reaches no kernel on the CPU either way.
+  backward (the op dispatched under autograd too); a float32 tensor
+  reaches no kernel on the CPU either way.
 * F12, bfloat16: an EGCL (``LAYER`` of ``test_torch_compute_statement.py``:
   kNN or dense, the virtual node live, ``h_residual``) whose edge work is
   the compute-dtype statement (JAX's route) against the JAX package's flax
@@ -30,7 +31,10 @@ widths.
   statement, the radial-basis kernels' gradients summed over the edges in
   bfloat16 by XLA and in float32 by torch's product.)
 * F9 (f) and (g): the card's records (``f9_f_timing.json``, and the
-  retrains where they exist) read by the rule of ``ROADMAP.md`` §3.
+  retrains where they exist) read by the rule of ``ROADMAP.md`` §3. The
+  records the rule reads are the committed tree's (``..._g.json``: the
+  node MLP in torch's rounding under autograd); the ``..._f12.json``
+  records ran with the node MLP in JAX's rounding in training too.
 """
 
 import contextlib
@@ -104,6 +108,31 @@ def test_bias_silu_backward_is_the_statements():
         grads.append(torch.autograd.grad(fn(vv, bb), (vv, bb), g))
     for got, want in zip(*grads):
         assert torch.equal(got, want)
+
+
+def test_bias_silu_under_autograd_is_the_op():
+    """Where autograd records, ``bias_silu`` still dispatches the custom op
+    (the kernel on the card), its backward the statement's."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = []
+
+    class Ops(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    v, b = _vb((5, 24), torch.bfloat16, seed=3)
+    v.requires_grad_()
+    with Ops():
+        y = activations.bias_silu(v, b)
+    assert "diffusion_model_tpu_torch.bias_silu.default" in seen
+    assert y.requires_grad
+    (gv,) = torch.autograd.grad(y.sum(), (v,))
+    vv = v.detach().requires_grad_()
+    (want,) = torch.autograd.grad(
+        activations.bias_silu_reference(vv, b).sum(), (vv,))
+    assert torch.equal(gv, want)
 
 
 def test_bias_silu_launches_nothing_off_the_card():
@@ -321,13 +350,16 @@ def test_plain_route_matches_jax_bf16(case):
 
 def test_the_card_record_of_the_variants_with_f12():
     """F9 step (d)'s replay run again with F12 (``f9_variants_card_f12.
-    json``), before (g): the port (2b) keeps the virtual-node channel
-    within the band around JAX's float32 track at step 150, every tree gap
-    within the rule, and its loss parts from JAX's bfloat16 loss over steps
-    91-100 (outcome ii), as every variant's does since F12, and as 2a's
-    (JAX's route) did before it (``f9_variants_card.json``)."""
+    json``), made with the node MLP in JAX's rounding in training too (a
+    form the committed tree leaves out, ``training_form``): the port (2b)
+    keeps the virtual-node channel within the band around JAX's float32
+    track at step 150, every tree gap within the rule, and its loss parts
+    from JAX's bfloat16 loss over steps 91-100 (outcome ii), as every
+    variant's does in that form, and as 2a's (JAX's route) did before F12
+    (``f9_variants_card.json``)."""
     with open(full.FIXTURES / "f9_variants_card_f12.json") as f:
         rec = json.load(f)
+    assert "node MLP in JAX's rounding" in rec["training_form"]
     assert rec["card"].startswith("NVIDIA H100")
     variants = rec["variants"]
     assert sorted(variants) == sorted(full.VARIANTS)
@@ -345,6 +377,34 @@ def test_the_card_record_of_the_variants_with_f12():
     with open(full.FIXTURES / "f9_variants_card.json") as f:
         before = json.load(f)["variants"]
     assert before["2a"]["verdict"]["bfloat16"]["loss_blocks_off"] == [91]
+
+
+def test_the_card_record_of_the_variants_on_the_committed_tree():
+    """The variants on the committed tree (``f9_variants_card_g.json``,
+    the virtual-node channel in JAX's rounding in training, the node MLP
+    in torch's), before the (g) that F9's rule reads: the port (2b) names
+    the cause at outcome (i), so ``decision`` is 2b, as the rule asks. The
+    route before F11 (as_is) now reads inside the band too, its loss off
+    JAX's bf16 over steps 91-100 (outcome ii): since F12 the measure no
+    longer separates F11."""
+    with open(full.FIXTURES / "f9_variants_card_g.json") as f:
+        rec = json.load(f)
+    assert rec["card"].startswith("NVIDIA H100")
+    assert rec["steps"] == full.VNODE_GAP_STEP
+    variants = rec["variants"]
+    assert sorted(variants) == sorted(full.VARIANTS)
+    for v, r in variants.items():
+        assert r["gaps"] == r["gaps_by_step"][str(full.VNODE_GAP_STEP)]
+        assert r["names_the_cause"] == full.names_the_cause(r["gaps"]), v
+        assert r["names_the_cause"], v
+        assert r["verdict"]["float32"]["held"], v
+        assert r["verdict"]["bfloat16"]["gap_records_off"] == [], v
+    port = variants["2b"]
+    assert port["verdict"]["outcome"] == "i"
+    assert port["verdict"]["bfloat16"]["loss_blocks_off"] == []
+    assert full.decision(variants) == rec["decision"] == "2b"
+    assert variants["as_is"]["verdict"]["outcome"] == "ii"
+    assert not rec["as_is_held"]
 
 
 def decide_f9(f_score, g_score) -> str:
@@ -377,7 +437,13 @@ def test_the_card_records_decide_f9():
     f_rec = _record("size_gen_192_hres_vn_seed2024_f32")
     # (f) runs only where its projection fits one call
     assert (f_rec is not None) == fits
-    g_rec = _record("size_gen_192_hres_vn_seed2024_f12")
+    # (g) on the committed tree (its node MLP in torch's rounding under
+    # autograd); the _f12 record ran with it in JAX's rounding in training
+    # too, and stays as that form's record
+    g_rec = _record("size_gen_192_hres_vn_seed2024_g")
+    assert "torch's (F.linear, F.silu) in training" in g_rec["repair"]
+    other = _record("size_gen_192_hres_vn_seed2024_f12")
+    assert "node MLP in JAX's rounding" in other["training_form"]
     scores = []
     for rec, dtype in ((f_rec, "float32"), (g_rec, "bfloat16")):
         if rec is None:

@@ -12,8 +12,9 @@ record of its run on the card.
 * ``tests/fixtures/torch_port/size_gen_192_hres_vn.json`` (the recipe's
   seed, 2024) and ``..._seed2025.json`` to ``..._seed2028.json``, the
   port's retrains of the record's ``h_residual+virtual_node`` arm on the
-  card (``..._seed2024_2b.json`` and ``..._seed2024_f12.json``: training
-  seed 2024 after F11's and F12's repairs): their fields, config name and
+  card (``..._seed2024_2b.json``, ``..._seed2024_f12.json`` and
+  ``..._seed2024_g.json``: training seed 2024 after F11's and F12's
+  repairs, the last the committed tree's): their fields, config name and
   gates as measured; the later seeds' scores at sampling seeds 2024 and
   0-3 (``sample_seeds``).
 """
@@ -176,6 +177,8 @@ def test_needs_the_card_unless_asked(monkeypatch, capsys):
                                        ("size_gen_192_hres_vn_seed2024_2b",
                                         2024),
                                        ("size_gen_192_hres_vn_seed2024_f12",
+                                        2024),
+                                       ("size_gen_192_hres_vn_seed2024_g",
                                         2024)])
 def test_the_cards_retrain_record(name, seed):
     with open(os.path.join(FIXTURES, name + ".json")) as f:
